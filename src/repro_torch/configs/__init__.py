@@ -1,0 +1,32 @@
+"""Config registry: ``get_config(name)`` / ``list_configs()``.
+
+A copy of the JAX package's registry without the dry-run shape specs: the
+port keeps its own configs so it imports nothing of ``repro``.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.archs import ALL_ARCHS, ASSIGNED
+from repro_torch.configs.base import ModelConfig, reduced_config
+
+
+def get_config(name: str) -> ModelConfig:
+    if name.endswith("-smoke"):
+        return reduced_config(get_config(name[: -len("-smoke")]))
+    try:
+        return ALL_ARCHS[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ALL_ARCHS)}") from None
+
+
+def list_configs():
+    return sorted(ALL_ARCHS)
+
+
+__all__ = [
+    "ModelConfig",
+    "ALL_ARCHS",
+    "ASSIGNED",
+    "get_config",
+    "list_configs",
+    "reduced_config",
+]

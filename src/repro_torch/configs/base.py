@@ -1,0 +1,105 @@
+"""Model configuration schema (a copy of ``repro.configs.base``; the
+derived counts the dry-run and roofline use are not copied).
+
+Every assigned architecture is expressed as a ``ModelConfig``, a frozen
+dataclass, so the port reads the same architectures as the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    # identity
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    source: str = ""  # citation tag from the assignment table
+
+    # transformer trunk
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    moe_group_size: int = 2048  # tokens per dispatch group
+
+    # attention variants
+    sliding_window: int = 0  # 0 = all-global
+    alternate_local_global: bool = False  # gemma2: even layers local
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    rope_theta: float = 10_000.0
+    use_qk_norm: bool = False
+
+    # SSM (mamba2 / SSD)
+    ssm_state_dim: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+    ssm_ngroups: int = 1
+
+    # hybrid (zamba2-style): one shared attention block every `hybrid_period`
+    # ssm layers
+    hybrid_period: int = 0
+
+    # encoder-decoder
+    enc_layers: int = 0  # >0 => encdec; num_layers is the decoder depth
+
+    # io / misc
+    attn_impl: str = "auto"  # auto | naive | blockwise | pallas (flash kernels)
+    input_mode: str = "tokens"  # tokens | embeddings (stubbed modality frontend)
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    act: str = "silu"  # silu | gelu
+    dtype: str = "bfloat16"
+
+    # notes recorded into DESIGN/EXPERIMENTS artifacts
+    notes: str = ""
+
+    # ----------------------------------------------------------------- derived
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads:
+            return self.d_model // self.num_heads
+        return 0
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def reduced_config(cfg: ModelConfig) -> ModelConfig:
+    """Tiny same-family variant for CPU smoke tests."""
+    kw = dict(
+        name=cfg.name + "-smoke",
+        num_layers=min(cfg.num_layers, 2),
+        d_model=64,
+        d_ff=128,
+        vocab_size=256,
+        moe_group_size=32,
+    )
+    if cfg.num_heads:
+        kw.update(num_heads=4, num_kv_heads=2 if cfg.num_kv_heads < cfg.num_heads else 4, head_dim=16)
+    if cfg.num_experts:
+        kw.update(num_experts=4, experts_per_token=2)
+    if cfg.ssm_state_dim:
+        kw.update(ssm_state_dim=16, ssm_head_dim=16, ssm_chunk=16)
+    if cfg.hybrid_period:
+        kw.update(hybrid_period=2, num_layers=4)
+    if cfg.enc_layers:
+        kw.update(enc_layers=2, num_layers=2)
+    if cfg.sliding_window:
+        kw.update(sliding_window=32)
+    return cfg.replace(**kw)

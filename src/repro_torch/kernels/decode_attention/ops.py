@@ -1,0 +1,90 @@
+"""Wrapper of the GQA decode attention kernel (``csrc/decode_attention.cu``).
+
+Replaces the TPU kernel ``repro.kernels.decode_attention.kernel.
+flash_decode_attention`` and its grouping/padding wrapper. On a CPU tensor
+it calls the plain version (`ref.decode_attention_ref`); on a CUDA tensor
+it launches the kernel or raises. The kernel is bound by the bytes of K and
+V; it reads only the rows below ``kv_len`` (the kernel source says more).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.checks import (
+    DTYPE_CODE,
+    HEAD_DIMS,
+    check_shape,
+    check_tensors,
+    ptr,
+    require,
+    stream_ptr,
+)
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+_K = "decode_attention"
+MAX_Q_PER_KV = 16  # query heads per KV head one block holds
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(_K)
+    fn = lib.repro_decode_attention
+    if fn.argtypes is None:
+        ptr_t, int_t, float_t = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [
+            ptr_t, ptr_t, ptr_t, ptr_t, ptr_t,  # q, k, v, kv_len, out
+            int_t, int_t, int_t, int_t, int_t, int_t,  # B, S, Hq, Hkv, Dh, dtype
+            float_t, float_t,  # scale, logit cap
+            ptr_t,  # stream
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, Hq, Dh)
+    k: torch.Tensor,  # (B, S, Hkv, Dh)
+    v: torch.Tensor,
+    kv_len: torch.Tensor,  # (B,) int32, 1 <= kv_len
+    *,
+    scale: Optional[float] = None,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """One query token per sequence over its KV cache: (B,Hq,Dh) -> (B,Hq,Dh)."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, kv_len, scale=scale, logit_cap=logit_cap)
+    require(q.device.type == "cuda", f"{_K}: unsupported device {q.device}")
+    require(q.dim() == 3 and k.dim() == 4, f"{_K}: q must be (B, Hq, Dh), k (B, S, Hkv, Dh)")
+    b, hq, dh = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    require(q.dtype in DTYPE_CODE, f"{_K}: dtype {q.dtype} not supported")
+    require(k.dtype == q.dtype and v.dtype == q.dtype, f"{_K}: q, k, v dtypes differ")
+    require(dh in HEAD_DIMS, f"{_K}: head_dim {dh} not in {HEAD_DIMS}")
+    require(hkv > 0 and hq % hkv == 0 and hq // hkv <= MAX_Q_PER_KV,
+            f"{_K}: Hq={hq}, Hkv={hkv}: need Hq a multiple of Hkv, at most "
+            f"{MAX_Q_PER_KV} query heads per KV head")
+    check_shape(_K, "k", k, (b, s, hkv, dh))
+    check_shape(_K, "v", v, (b, s, hkv, dh))
+    check_shape(_K, "kv_len", kv_len, (b,))
+    require(kv_len.dtype == torch.int32, f"{_K}: kv_len must be int32")
+    check_tensors(_K, q.device, ("q", "k", "v"), q=q, k=k, v=v, kv_len=kv_len)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    err = _lib().repro_decode_attention(
+        ptr(q), ptr(k), ptr(v), ptr(kv_len), ptr(out),
+        b, s, hq, hkv, dh, DTYPE_CODE[q.dtype], float(scale), float(logit_cap),
+        stream_ptr(q.device),
+    )
+    if err != 0:
+        raise RuntimeError(f"{_K}: kernel launch failed with cudaError {err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0  # kernel launches since the last reset

@@ -1,0 +1,47 @@
+"""Carry the JAX package's parameters across to the port.
+
+``params_from_jax`` takes the JAX parameter pytree with its leaves as numpy
+arrays (``jax.tree.map(np.asarray, params)``: stacked ``(L, ...)`` layer
+weights, ``(in, out)`` matrices) and returns the same tree as tensors on
+``device``, so both packages compute with identical weights.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.transformer import check_supported
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # torch.from_numpy rejects ml_dtypes.bfloat16: move the bits as uint16
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, device: DeviceLike = "cuda"):
+    """The JAX pytree of numpy arrays as a dict of tensors on ``device``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    params = conv(np_params)
+    want = {"embed", "final_norm", "layers"} | ({"lm_head"} if not cfg.tie_embeddings else set())
+    if set(params) != want:
+        raise ValueError(f"parameter tree has keys {sorted(params)}, expected {sorted(want)}")
+    n = params["layers"]["attn"]["wq"].shape[0]
+    if n != cfg.num_layers:
+        raise ValueError(f"parameter tree has {n} layers, config {cfg.name} has {cfg.num_layers}")
+    return params

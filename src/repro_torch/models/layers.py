@@ -1,0 +1,192 @@
+"""Neural-net layers of the dense decoder, in PyTorch (port of
+``repro.models.layers``).
+
+Conventions, as in the JAX package
+----------------------------------
+- Weights live in ``cfg.dtype``; norms and softmax run in f32.
+- Attention tensors are (batch, seq, heads, head_dim); weights are
+  ``(in, out)`` as in ``x @ w``.
+- Every layer is shape-polymorphic over batch and sequence, so the same code
+  serves prefill (whole prompt), chunked prefill (chunk + cache) and decode
+  (seq 1).
+
+Attention dispatch: on the card the hand-written CUDA kernels are the path
+(Sq > 1 goes to the prefill kernel, Sq == 1 to the decode kernel). On the
+CPU, ``impl="pallas"`` takes the kernels' wrappers (which run their plain
+versions on CPU tensors) and ``"auto"``/``"naive"`` take `naive_attention`.
+Sliding windows, packed segments, non-causal attention and the blockwise
+path are outside this slice of the port and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.prefill_attention.ops import prefill_attention
+
+_NEG_INF = -0.7 * torch.finfo(torch.float32).max
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ----------------------------------------------------------------------------
+# Norms
+# ----------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    orig = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(orig)
+
+
+# ----------------------------------------------------------------------------
+# Rotary position embeddings
+# ----------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Apply RoPE. x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(
+        -math.log(theta) * (torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    )
+    angles = positions[..., None].float() * freqs  # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Attention
+# ----------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0:
+        return cap * torch.tanh(x / cap)
+    return x
+
+
+def attention_mask(
+    q_pos: torch.Tensor,  # (B, Sq)
+    kv_len: int,
+    kv_valid: Optional[torch.Tensor] = None,  # (B,) valid kv length
+) -> torch.Tensor:
+    """Causal boolean mask (B, Sq, Skv); True = attend."""
+    kv_pos = torch.arange(kv_len, device=q_pos.device)[None, None, :]
+    mask = kv_pos <= q_pos[:, :, None]
+    if kv_valid is not None:
+        mask = mask & (kv_pos < kv_valid[:, None, None])
+    return mask
+
+
+def naive_attention(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Skv, Hkv, D)
+    v: torch.Tensor,
+    mask: torch.Tensor,  # (B, Sq, Skv) bool
+    logit_cap: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Grouped-head GQA attention (never materializes repeated K/V): the
+    plain path of the CPU."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, hkv, g, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = softcap(scores * scale, logit_cap)
+    scores = torch.where(mask[:, None, None, :, :], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
+    return out.reshape(b, sq, hq, d)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_valid: Optional[torch.Tensor] = None,
+    *,
+    window=0,
+    causal: bool = True,
+    logit_cap: float = 0.0,
+    scale: Optional[float] = None,
+    q_seg: Optional[torch.Tensor] = None,
+    kv_seg: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Causal GQA attention: the CUDA kernels on the card, the plain path or
+    the kernels' plain versions on the CPU (see the module docstring)."""
+    if window or not causal or q_seg is not None or kv_seg is not None:
+        raise NotImplementedError(
+            "sliding windows, non-causal attention and packed segments are not "
+            "ported yet"
+        )
+    if impl not in ("auto", "naive", "pallas"):
+        raise NotImplementedError(f"attention impl {impl!r} is not ported yet")
+    b, sq = q.shape[0], q.shape[1]
+    skv = k.shape[1]
+    if q.is_cuda or impl == "pallas":
+        kv_len = (
+            kv_valid if kv_valid is not None
+            else torch.full((b,), skv, dtype=torch.int32, device=q.device)
+        ).to(torch.int32).contiguous()
+        if sq == 1:
+            out = decode_attention(
+                q[:, 0].contiguous(), k, v, kv_len, scale=scale, logit_cap=logit_cap
+            )
+            return out[:, None]
+        return prefill_attention(
+            q.contiguous(), k, v, q_pos.to(torch.int32).contiguous(), kv_len,
+            scale=scale, logit_cap=logit_cap,
+        )
+    mask = attention_mask(q_pos, skv, kv_valid)
+    return naive_attention(q, k, v, mask, logit_cap, scale)
+
+
+# ----------------------------------------------------------------------------
+# MLP
+# ----------------------------------------------------------------------------
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+def gated_mlp(
+    x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor, act: str
+) -> torch.Tensor:
+    g = act_fn(act)(x @ w_gate)
+    u = x @ w_up
+    return (g * u) @ w_down
+
+
+# ----------------------------------------------------------------------------
+# Initializers (the JAX package's distributions, drawn from a torch.Generator)
+# ----------------------------------------------------------------------------
+
+def dense_init(
+    gen: torch.Generator, shape, dtype: torch.dtype, device: torch.device, in_axis: int = 0
+) -> torch.Tensor:
+    std = 1.0 / math.sqrt(shape[in_axis])
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * std).to(dtype)
+
+
+def embed_init(
+    gen: torch.Generator, shape, dtype: torch.dtype, device: torch.device
+) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
