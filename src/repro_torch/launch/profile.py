@@ -1,5 +1,5 @@
 """Where a serve's device time goes: the smoke serve of ``chip_smoke.py``
-under ``torch.profiler``.
+(``launch/smoke_workload.py``) under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile [--page-size 64]
 
@@ -9,11 +9,12 @@ warm up, once unprofiled for the wall time, then again under the profiler,
 and prints: both walls, the device's busy and idle share in the profiled
 serve, device time by kernel group (the two attention kernels, matrix
 products, copies and indexing, the rest), the top kernels by device time,
-and the host time of prefill chunks and decode steps (each ends in a device
-sync). The profiler's own cost stretches the profiled wall, so the idle
-share it gives is an upper bound. Weights are random (seed 0). ``--device``
-defaults to ``cuda``; ``--device cpu --arch llama3-8b-smoke`` rehearses the
-script without a card.
+the host time of prefill chunks and decode steps (each ends in a device
+sync), and the device time of the kernels each of them launched. The
+profiler's own cost stretches the profiled wall, so the idle share it gives
+is an upper bound. Weights are random (seed 0). ``--device`` defaults to
+``cuda``; ``--device cpu --arch llama3-8b-smoke`` rehearses the script
+without a card.
 """
 from __future__ import annotations
 
@@ -21,16 +22,14 @@ import argparse
 import subprocess
 import time
 from collections import defaultdict
-from typing import Optional
 
-import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import get_config
-from repro_torch.core.request import Request, SLOSpec
+from repro_torch.launch.smoke_workload import smoke_engine_config, smoke_requests
 from repro_torch.models import build_model
-from repro_torch.serving.engine import DisaggServer, EngineConfig
+from repro_torch.serving.engine import DisaggServer
 from repro_torch.serving.session import ServeSession
 
 _GROUPS = (
@@ -50,30 +49,6 @@ def _group(name: str) -> str:
         if any(k in low for k in keys):
             return group
     return "other"
-
-
-def smoke_requests(vocab_size: int, seed: int = 0):
-    """The smoke serve's 8 requests: a long-tail mix of prompts of 64-1536
-    tokens (order shuffled by ``seed``), 32 output tokens each, arrivals
-    50 ms apart, SLOs of TTFT 2 s and TPOT 0.1 s (placeholders: no limits
-    are chosen yet)."""
-    rng = np.random.default_rng(seed)
-    lens = rng.permutation([64, 96, 160, 256, 384, 640, 1024, 1536])
-    return [
-        (Request(rid=i, arrival=0.05 * i, input_len=int(m), output_len=32,
-                 slo=SLOSpec(ttft=2.0, tpot=0.1)),
-         list(map(int, rng.integers(2, vocab_size, int(m)))))
-        for i, m in enumerate(lens)
-    ]
-
-
-def smoke_engine_config(page_size: Optional[int] = None) -> EngineConfig:
-    """The smoke serve's engine: 8 decode lanes of 2048 tokens, 512-token
-    prefill chunks, the Kairos policies, no end-of-sequence token (every
-    request generates exactly its output length)."""
-    return EngineConfig(max_slots=8, max_len=2048, chunk_size=512,
-                        prefill_policy="kairos-urgency", decode_policy="kairos-slack",
-                        eos_token=-1, page_size=page_size)
 
 
 def _labelled(fn, label, sink):
@@ -144,6 +119,14 @@ def main(argv=None) -> None:
     for label, times in host_plain.items():
         print(f"[profile] host {label:14s} x{len(times):4d} mean "
               f"{1e3 * sum(times) / max(len(times), 1):.3f} ms unprofiled (ends in a device sync)")
+    # a range's device time: the kernels launched inside it, from the CPU-side
+    # range event (the same label's device-side span would count idle gaps)
+    for e in events:
+        if e.key in _LABELS and e.device_type.name == "CPU":
+            print(f"[profile] device {e.key:14s} x{e.count:4d} mean "
+                  f"{e.device_time_total / 1e3 / e.count:.3f} ms of kernels launched inside "
+                  f"the range (profiled serve), "
+                  f"{100 * e.device_time_total / max(busy_us, 1e-9):.1f}% of busy")
 
 
 if __name__ == "__main__":

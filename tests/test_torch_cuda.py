@@ -1,8 +1,9 @@
-"""The port on the card: each CUDA kernel against its plain version over
-the sweep of tests/test_kernels.py, the stale-tail property, and a small
-serve whose attention goes through the kernels. Every test is marked
-``cuda`` and skips without a card; this file imports no JAX, so it runs
-where only PyTorch is installed:
+"""The port on the card: the kernel wrappers' argument checks and a small
+serve whose attention goes through the kernels. The kernels themselves are
+held against their plain versions on the card by ``chip_smoke.py`` alone
+(the sweep of tests/test_kernels.py and the serving shapes). Every test is
+marked ``cuda`` and skips without a card; this file imports no JAX, so it
+runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -13,16 +14,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.request import Request, SLOSpec  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.prefill_attention.ops import prefill_attention  # noqa: E402
-from repro_torch.kernels.prefill_attention.ref import prefill_attention_ref  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import DisaggServer, EngineConfig, reference_generate  # noqa: E402
 
 pytestmark = pytest.mark.cuda
-
-# the tolerances of tests/test_kernels.py
-_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
 @pytest.fixture
@@ -31,72 +27,6 @@ def cuda():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
-
-
-def _randn(rng, shape, dtype, dev, scale=1.0):
-    return (torch.tensor(rng.standard_normal(shape), dtype=torch.float32) * scale).to(
-        device=dev, dtype=dtype)
-
-
-@pytest.mark.parametrize(
-    "b,sq,skv,hq,hkv,dh",
-    [(2, 128, 256, 4, 2, 64), (1, 64, 64, 8, 8, 128), (2, 100, 300, 6, 2, 32),
-     (1, 256, 512, 4, 1, 128), (3, 32, 160, 4, 2, 16)],
-)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_prefill_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, dh, dtype, rng):
-    q = _randn(rng, (b, sq, hq, dh), dtype, cuda)
-    k = _randn(rng, (b, skv, hkv, dh), dtype, cuda)
-    v = _randn(rng, (b, skv, hkv, dh), dtype, cuda)
-    offs = torch.tensor(rng.integers(0, skv - sq + 1, size=b), dtype=torch.int32, device=cuda)
-    q_pos = (offs[:, None] + torch.arange(sq, dtype=torch.int32, device=cuda)).contiguous()
-    kv_len = (offs + sq).to(torch.int32)
-    n = prefill_attention.launches
-    out = prefill_attention(q, k, v, q_pos, kv_len)
-    assert prefill_attention.launches == n + 1
-    ref = prefill_attention_ref(q, k, v, q_pos, kv_len)
-    torch.testing.assert_close(out.float(), ref.float(), **_TOL[dtype])
-
-
-def test_prefill_kernel_logit_cap(cuda, rng):
-    q = _randn(rng, (1, 64, 4, 32), torch.float32, cuda, 3.0)
-    k = _randn(rng, (1, 128, 2, 32), torch.float32, cuda, 3.0)
-    v = _randn(rng, (1, 128, 2, 32), torch.float32, cuda)
-    q_pos = (torch.arange(64, dtype=torch.int32, device=cuda) + 64)[None].contiguous()
-    kv_len = torch.tensor([128], dtype=torch.int32, device=cuda)
-    out = prefill_attention(q, k, v, q_pos, kv_len, logit_cap=30.0)
-    ref = prefill_attention_ref(q, k, v, q_pos, kv_len, logit_cap=30.0)
-    torch.testing.assert_close(out, ref, **_TOL[torch.float32])
-
-
-@pytest.mark.parametrize(
-    "b,s,hq,hkv,dh", [(4, 512, 8, 2, 64), (2, 300, 4, 4, 128), (1, 1024, 16, 2, 32),
-                      (3, 96, 8, 1, 128)],
-)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_matches_plain(cuda, b, s, hq, hkv, dh, dtype, rng):
-    q = _randn(rng, (b, hq, dh), dtype, cuda)
-    k = _randn(rng, (b, s, hkv, dh), dtype, cuda)
-    v = _randn(rng, (b, s, hkv, dh), dtype, cuda)
-    kv_len = torch.tensor(rng.integers(1, s + 1, size=b), dtype=torch.int32, device=cuda)
-    n = decode_attention.launches
-    out = decode_attention(q, k, v, kv_len)
-    assert decode_attention.launches == n + 1
-    ref = decode_attention_ref(q, k, v, kv_len)
-    torch.testing.assert_close(out.float(), ref.float(), **_TOL[dtype])
-
-
-def test_decode_kernel_ignores_stale_cache_tail(cuda, rng):
-    """Entries past kv_len leave the output bit-identical."""
-    q = _randn(rng, (2, 4, 32), torch.float32, cuda)
-    k = _randn(rng, (2, 256, 2, 32), torch.float32, cuda)
-    v = _randn(rng, (2, 256, 2, 32), torch.float32, cuda)
-    kv_len = torch.tensor([100, 17], dtype=torch.int32, device=cuda)
-    out1 = decode_attention(q, k, v, kv_len)
-    k2, v2 = k.clone(), v.clone()
-    k2[:, 200:] = 1e4
-    v2[:, 200:] = -1e4
-    assert torch.equal(out1, decode_attention(q, k2, v2, kv_len))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -246,3 +246,4 @@ def test_profile_script_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "paged KV, 8 requests x 32 tokens on cpu" in out
     assert "host decode_step" in out and "host prefill_chunk" in out
+    assert "device decode_step" in out and "device prefill_chunk" in out

@@ -4,7 +4,7 @@ On the CPU the wrappers run their plain PyTorch versions; these are held
 against the JAX oracles over the sweep of tests/test_kernels.py (2e-5 f32,
 2e-2 bf16) and against the JAX Pallas wrappers in interpret mode for the
 unaligned and logit-cap cases. The CUDA kernels themselves are held
-against the plain versions on the card by tests/test_torch_cuda.py.
+against the plain versions on the card by chip_smoke.py.
 """
 import pytest
 
