@@ -11,20 +11,32 @@ Phases, each printed on its own lines:
   build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
   kernels  every kernel against its plain PyTorch version on the card, over
            the sweep of tests/test_kernels.py and at the serving shapes of
-           llama3-8b, each in f32 (tol 2e-5) and bf16 (tol 2e-2), with bf16
-           times, bounds and a library call as yardstick; any mismatch
-           beyond tolerance fails the run. This is the one on-card check of
-           the kernels against their plain versions
+           llama3-8b (attention), zamba2-2.7b (attention at Dh=80, SSD scan)
+           and mamba2-130m (SSD scan), each in f32 (attention tol 2e-5, SSD
+           1e-4) and bf16 (tol 2e-2), with bf16 times, bounds and, for
+           attention, a library call as yardstick; any mismatch beyond
+           tolerance fails the run. This is the one on-card check of the
+           kernels against their plain versions
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
-           policies, slot then paged KV; both kernels must launch
-  parity   float32 at full width, depth cut to 4 layers: engine tokens under
-           two policy pairs, slot and paged, equal reference_generate's
+           policies, slot then paged KV; both attention kernels must launch
+  parity   float32 at full width: llama3-8b cut to 4 layers, engine tokens
+           under two policy pairs, slot and paged, equal reference_generate's;
+           mamba2-130m (full depth) and zamba2-2.7b (cut to 12 layers),
+           Model.prefill's last logits equal token-by-token Model.decode's
+           (tol 2e-4) and the 8 greedy tokens after both paths are equal
+  ssm      zamba2-2.7b, then mamba2-130m, at full width and depth in bf16
+           (random weights from a seed): Model.prefill of 4 right-padded
+           prompts, handoff into a decode cache, 32 greedy Model.decode
+           steps; the SSD scan (and for zamba2 both attention kernels) must
+           launch once per layer
 
 Every phase runs on every call. It imports nothing of JAX or of the JAX
 package, exits non-zero when there is no card or when run outside the
 repository, and prints the kernel table and the card line before the last
-line, which is the ``{"ok": true, ...}`` record.
+line, which is the ``{"ok": true, ...}`` record. The table's launches are
+the slot serve's (attention) and the zamba2 prefill's (SSD scan), each
+counted from zero.
 """
 from __future__ import annotations
 
@@ -128,7 +140,6 @@ def _randn(gen, shape, dtype, scale=1.0):
 
 def phase_kernels(ctx) -> None:
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -205,23 +216,50 @@ def phase_kernels(ctx) -> None:
         f"bit-identical); max abs err prefill {sweep_err['prefill_attention']:.3e} "
         f"decode {sweep_err['decode_attention']:.3e}")
 
-    # the serving shapes of llama3-8b
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB of L2
 
     def flush():
         flush_buf.zero_()
 
-    bf = torch.bfloat16
-    esize = 2
-    rows = []
-    # prefill: a 512-token chunk at offset 1536 over a 2048-row prefix. Each
-    # shape is checked in f32 (the tight tolerance) then bf16 (the serving
-    # dtype, which is timed); q, k, v are the bf16 inputs after the loop.
-    b, sq, skv, hq, hkv, dh = 1, 512, 2048, 32, 8, 128
-    q_pos = (torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq))[None].contiguous()
-    kv_len = torch.tensor([skv], device=dev, dtype=torch.int32)
+    # the serving shapes of llama3-8b (the kernel table's rows): a 512-token
+    # prefill chunk at offset 1536 over a 2048-row prefix, and a decode batch
+    # of 8 over 2048-row caches with mixed kv_len
+    rows = [
+        _prefill_row(gen, flush, 1, 512, 2048, 32, 8, 128),
+        _decode_row(gen, flush, 8, 2048, 32, 8, 128, [2048, 1900, 1536, 1024, 700, 512, 130, 64]),
+    ]
+    # zamba2-2.7b's shared attention (MHA 32/32, Dh=80): its 2048-token
+    # prefill, and decode of its 4 requests over a 2080-row cache
+    extra = [
+        _prefill_row(gen, flush, 1, 2048, 2048, 32, 32, 80),
+        _decode_row(gen, flush, 4, 2080, 32, 32, 80, [2080, 1568, 732, 162]),
+    ]
+    for r in rows + extra:
+        say(f"[kernels] {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max abs err bf16 {r['max_abs_err']:.3e} (tol {r['tol']}), "
+            f"f32 {r['max_abs_err_f32']:.3e} (tol {TOL['torch.float32']}) "
+            f"[{ctx['card']}]")
+    rows.append(_ssd_checks(ctx, gen, flush))
+    ctx["kernel_rows"] = rows
+
+
+def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh) -> dict:
+    """prefill_attention against its plain version at one serving shape, the
+    chunk at the end of the prefix: checked in f32 (the tight tolerance) then
+    bf16 (the serving dtype, which is timed, with SDPA as yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.kernels.prefill_attention.ref import prefill_attention_ref
+
+    dev = torch.device("cuda")
+    q_pos = (torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq))[None].expand(b, sq)
+    q_pos = q_pos.contiguous()
+    kv_len = torch.full((b,), skv, device=dev, dtype=torch.int32)
     errs = {}
-    for dtype in (torch.float32, bf):
+    for dtype in (torch.float32, torch.bfloat16):
         q = _randn(gen, (b, sq, hq, dh), dtype)
         k = _randn(gen, (b, skv, hkv, dh), dtype)
         v = _randn(gen, (b, skv, hkv, dh), dtype)
@@ -229,7 +267,7 @@ def phase_kernels(ctx) -> None:
         ref = prefill_attention_ref(q, k, v, q_pos, kv_len)
         errs[dtype] = _max_err(out, ref)
         check(_close(out, ref, dtype),
-              f"prefill_attention at serving shape {dtype}: max err {errs[dtype]}")
+              f"prefill_attention at serving shape Dh={dh} {dtype}: max err {errs[dtype]}")
     kvp = torch.arange(skv, device=dev)
     mask = ((kvp[None, None, :] <= q_pos[:, :, None])
             & (kvp[None, None, :] < kv_len[:, None, None]))[:, None]
@@ -240,25 +278,35 @@ def phase_kernels(ctx) -> None:
     visible = torch.minimum(q_pos.long() + 1, kv_len.long()[:, None]).sum().item()
     kv_rows = min(skv, int(q_pos.max()) + 1)
     flops = 4 * hq * dh * visible
-    nbytes = esize * (2 * b * sq * hq * dh + 2 * b * kv_rows * hkv * dh) + 4 * (b * sq + b)
-    rows.append(dict(
+    nbytes = 2 * (2 * b * sq * hq * dh + 2 * b * kv_rows * hkv * dh) + 4 * (b * sq + b)
+    return dict(
         name="prefill_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/prefill_attention.cu",
         replaces="src/repro/kernels/prefill_attention/kernel.py:83",
-        max_abs_err=errs[bf], tol=TOL[str(bf)], max_abs_err_f32=errs[torch.float32],
+        max_abs_err=errs[torch.bfloat16], tol=TOL["torch.bfloat16"],
+        max_abs_err_f32=errs[torch.float32],
         ms=_time_ms(lambda: prefill_attention(q, k, v, q_pos, kv_len), iters=20, flush=flush),
         plain_ms=_time_ms(lambda: prefill_attention_ref(q, k, v, q_pos, kv_len), iters=5,
                           flush=flush),
         library_ms=lib,
-        **_bound(flops, nbytes, str(bf)),
+        **_bound(flops, nbytes, "torch.bfloat16"),
         shape=f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} bf16, q_pos {skv - sq}..{skv - 1}",
-    ))
-    # decode: a batch of 8 over 2048-row caches with mixed kv_len
-    b, s = 8, 2048
-    kv_len = torch.tensor([2048, 1900, 1536, 1024, 700, 512, 130, 64], device=dev,
-                          dtype=torch.int32)
+    )
+
+
+def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
+    """decode_attention against its plain version at one serving shape, f32
+    then bf16 (timed, with SDPA as yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    dev = torch.device("cuda")
+    kv_len = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
     errs = {}
-    for dtype in (torch.float32, bf):
+    for dtype in (torch.float32, torch.bfloat16):
         q = _randn(gen, (b, hq, dh), dtype)
         k = _randn(gen, (b, s, hkv, dh), dtype)
         v = _randn(gen, (b, s, hkv, dh), dtype)
@@ -266,7 +314,7 @@ def phase_kernels(ctx) -> None:
         ref = decode_attention_ref(q, k, v, kv_len)
         errs[dtype] = _max_err(out, ref)
         check(_close(out, ref, dtype),
-              f"decode_attention at serving shape {dtype}: max err {errs[dtype]}")
+              f"decode_attention at serving shape Dh={dh} {dtype}: max err {errs[dtype]}")
     dmask = (torch.arange(s, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
     qt4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     lib = _time_ms(lambda: F.scaled_dot_product_attention(qt4, kt, vt, attn_mask=dmask,
@@ -274,26 +322,104 @@ def phase_kernels(ctx) -> None:
                    iters=50, flush=flush)
     tot = int(kv_len.sum())
     flops = 4 * hq * dh * tot
-    nbytes = esize * (2 * tot * hkv * dh + 2 * b * hq * dh) + 4 * b
-    rows.append(dict(
+    nbytes = 2 * (2 * tot * hkv * dh + 2 * b * hq * dh) + 4 * b
+    return dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention/kernel.py:77",
-        max_abs_err=errs[bf], tol=TOL[str(bf)], max_abs_err_f32=errs[torch.float32],
+        max_abs_err=errs[torch.bfloat16], tol=TOL["torch.bfloat16"],
+        max_abs_err_f32=errs[torch.float32],
         ms=_time_ms(lambda: decode_attention(q, k, v, kv_len), iters=50, flush=flush),
         plain_ms=_time_ms(lambda: decode_attention_ref(q, k, v, kv_len), iters=10,
                           flush=flush),
         library_ms=lib,
-        **_bound(flops, nbytes, str(bf)),
+        **_bound(flops, nbytes, "torch.bfloat16"),
         shape=f"B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh} bf16, kv_len {kv_len.tolist()}",
-    ))
-    for r in rows:
-        say(f"[kernels] {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), max abs err bf16 {r['max_abs_err']:.3e} (tol {r['tol']}), "
-            f"f32 {r['max_abs_err_f32']:.3e} (tol {TOL['torch.float32']}) "
-            f"[{ctx['card']}]")
-    ctx["kernel_rows"] = rows
+    )
+
+
+def _ssd_inputs(gen, b, l, h, p, n, dtype):
+    import torch
+
+    dev = torch.device("cuda")
+    x = _randn(gen, (b, l, h, p), dtype, 0.5)
+    dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 0.001
+    A = -(torch.rand((h,), generator=gen, device=dev) * 3.5 + 0.5)
+    Bm = _randn(gen, (b, l, n), dtype, 0.3)
+    Cm = _randn(gen, (b, l, n), dtype, 0.3)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_checks(ctx, gen, flush) -> dict:
+    """ssd_scan against its plain version over the sweep of
+    tests/test_kernels.py, an initial state and the serving shapes of
+    zamba2-2.7b and mamba2-130m, each in f32 (tol 1e-4, the JAX kernel
+    test's) and bf16 (2e-2); bf16 timed at both serving shapes. Returns the
+    kernel table's row, at zamba2's shape."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    dev = torch.device("cuda")
+    serving = {"zamba2-2.7b": (2, 2048, 80, 64, 64, 128), "mamba2-130m": (2, 2048, 24, 64, 128, 128)}
+    cases = [(2, 256, 4, 64, 32, 64), (1, 100, 2, 32, 16, 32), (2, 128, 8, 16, 64, 128),
+             (2, 300, 4, 64, 128, 128), *serving.values()]
+    sweep_err, errs, timed = 0.0, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, l, h, p, n, chunk) in enumerate(cases):
+            x, dt, A, Bm, Cm = _ssd_inputs(gen, b, l, h, p, n, dtype)
+            s0 = _randn(gen, (b, h, p, n), torch.float32) if l == 300 else None  # initial state
+            y, fs = ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+            yr, fsr = ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None], min(chunk, l), s0)
+            err = max(_max_err(y, yr), _max_err(fs, fsr))
+            t = tol[dtype]
+            check(bool(torch.allclose(y.float(), yr.float(), rtol=t, atol=t)
+                       and torch.allclose(fs, fsr, rtol=t, atol=t)),
+                  f"ssd_scan {dtype} {(b, l, h, p, n, chunk)}: max err {err}")
+            name = next((k for k, v in serving.items() if v == cases[i]), None)
+            if name is None:
+                sweep_err = max(sweep_err, err)
+                continue
+            errs[(name, dtype)] = err
+            if dtype == torch.bfloat16:
+                timed[name] = dict(
+                    ms=_time_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=chunk), iters=20, flush=flush),
+                    plain_ms=_time_ms(lambda: ssd_chunked(x, dt, A, Bm[:, :, None],
+                                                          Cm[:, :, None], chunk),
+                                      iters=5, flush=flush),
+                    **_bound(*_ssd_work(b, l, h, p, n, chunk, 2), "torch.bfloat16"),
+                )
+    say(f"[kernels] ssd_scan sweep ok (f32 tol 1e-4, bf16 tol 2e-2, initial state); max abs "
+        f"err {sweep_err:.3e}")
+    for name, (b, l, h, p, n, chunk) in serving.items():
+        r = timed[name]
+        say(f"[kernels] ssd_scan at {name} B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max abs err bf16 {errs[(name, torch.bfloat16)]:.3e} (tol 2e-2), "
+            f"f32 {errs[(name, torch.float32)]:.3e} (tol 1e-4), {b * h} blocks on "
+            f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs [{ctx['card']}]")
+    z = timed["zamba2-2.7b"]
+    return dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:85",
+        max_abs_err=errs[("zamba2-2.7b", torch.bfloat16)], tol=tol[torch.bfloat16],
+        max_abs_err_f32=errs[("zamba2-2.7b", torch.float32)],
+        ms=z["ms"], plain_ms=z["plain_ms"], library_ms=None,  # no one PyTorch call scans SSD
+        bound_ms=z["bound_ms"], bound_by=z["bound_by"], shape="zamba2-2.7b B=2 L=2048 bf16",
+    )
+
+
+def _ssd_work(b, l, h, p, n, chunk, esize):
+    """(operations, bytes) of one SSD scan: per (batch, head, chunk of q
+    rows) 2 q^2 N (C B^T) + 2 q^2 P (scores . x dt) + 2 q N P (C state^T) +
+    2 q P N (state increment); x and y, dt, B and C once, the final state."""
+    q = min(chunk, l)
+    rows = [q] * (l // q) + ([l % q] if l % q else [])
+    flops = b * h * sum(2 * r * r * (n + p) + 4 * r * n * p for r in rows)
+    nbytes = esize * (2 * b * l * h * p + 2 * b * l * n) + 4 * (b * l * h + h + b * h * p * n)
+    return flops, nbytes
 
 
 def _bound(flops: float, nbytes: float, dtype: str) -> dict:
@@ -461,6 +587,153 @@ def phase_parity(ctx) -> None:
     say(f"[parity] llama3-8b f32, full width, depth cut 32 -> 4 layers [{ctx['card']}]")
     del params
     torch.cuda.empty_cache()
+    _ssm_parity(ctx, "mamba2-130m", None)
+    _ssm_parity(ctx, "zamba2-2.7b", 12)
+
+
+SSM_PARITY_TOL = 2e-4  # atol = rtol, as tests/test_models_numerics.py
+
+
+def _ssm_parity(ctx, arch, num_layers) -> None:
+    """float32 at full width: for prompts of 17, 130 and 250 tokens, the
+    last-token logits of Model.prefill equal those of the same prompt fed
+    token by token through Model.decode from a zero cache, and the 8 greedy
+    tokens after each path (prefill handed off into a decode cache, and the
+    token-by-token cache) are equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import handoff
+
+    dev = ctx["device"]
+    cfg = get_config(arch).replace(dtype="float32")
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
+    model = build_model(cfg)
+    params = model.init(seed=1, device=dev)
+    rng = np.random.default_rng(1)
+    errs = []
+    for n in (17, 130, 250):
+        prompt = torch.tensor(rng.integers(2, cfg.vocab_size, n), device=dev)
+        max_len = n + 8
+        lg_pf, kv = model.prefill(params, dict(inputs=prompt[None]))
+        c_pf = handoff(cfg, kv, model.init_cache(1, max_len, device=dev))
+        c_dec = model.init_cache(1, max_len, device=dev)
+        for t in range(n):
+            lg_dec, c_dec = model.decode(params, prompt[None, t : t + 1],
+                                         torch.tensor([t], device=dev), c_dec)
+        err = _max_err(lg_dec, lg_pf)
+        errs.append(err)
+        check(bool(torch.allclose(lg_dec, lg_pf, rtol=SSM_PARITY_TOL, atol=SSM_PARITY_TOL)),
+              f"parity {arch} prompt {n}: prefill vs token-by-token logits max err {err}")
+        toks = []
+        for lg, cache in ((lg_pf, c_pf), (lg_dec, c_dec)):
+            tok, seq = torch.argmax(lg, -1), []
+            for t in range(8):
+                seq.append(int(tok))
+                lg, cache = model.decode(params, tok[:, None], torch.tensor([n + t], device=dev),
+                                         cache)
+                tok = torch.argmax(lg, -1)
+            toks.append(seq)
+        check(toks[0] == toks[1], f"parity {arch} prompt {n}: greedy tokens after prefill "
+              f"{toks[0]} != after token-by-token decode {toks[1]}")
+    depth = (f"depth cut {get_config(arch).num_layers} -> {cfg.num_layers} layers" if num_layers
+             else f"full depth ({cfg.num_layers} layers)")
+    say(f"[parity] {arch} f32, full width, {depth}: prefill vs token-by-token decode logits max "
+        f"abs err {', '.join(f'{e:.3e}' for e in errs)} for prompts of 17, 130, 250 tokens "
+        f"(tol {SSM_PARITY_TOL}); 8 greedy tokens after each path equal [{ctx['card']}]")
+    del params
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------------ ssm
+SSM_PROMPTS = (2048, 1536, 700, 130)  # right-padded to the longest, with valid_len
+SSM_MAX_LEN, SSM_STEPS = 2080, 32
+
+
+def phase_ssm(ctx) -> None:
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import handoff
+
+    dev, card = ctx["device"], ctx["card"]
+    kernels = {"ssd_scan": ssd, "prefill_attention": prefill_attention,
+               "decode_attention": decode_attention}
+    for arch in ("zamba2-2.7b", "mamba2-130m"):
+        gc.collect()  # servers of earlier phases hold weights and caches in reference cycles
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)  # full width and depth, bf16 (the config's own dtype)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        attn = (f", shared attention {cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim} "
+                f"after every {cfg.hybrid_period}" if cfg.hybrid_period else "")
+        say(f"[ssm] {arch}: {cfg.num_layers} Mamba2 layers, d_model {cfg.d_model}, "
+            f"{cfg.ssm_num_heads} SSM heads x {cfg.ssm_head_dim}, state {cfg.ssm_state_dim}{attn}, "
+            f"vocab {cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.3f} B random parameters "
+            f"(seed 0) in {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(0)
+        toks = np.zeros((len(SSM_PROMPTS), max(SSM_PROMPTS)), np.int64)
+        for i, n in enumerate(SSM_PROMPTS):
+            toks[i, :n] = rng.integers(2, cfg.vocab_size, n)
+        inputs = torch.tensor(toks, device=dev)
+        valid = torch.tensor(SSM_PROMPTS, dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        logits, kv = model.prefill(params, dict(inputs=inputs), valid_len=valid)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = handoff(cfg, kv, model.init_cache(len(SSM_PROMPTS), SSM_MAX_LEN, device=dev))
+        del kv
+        finite = [torch.isfinite(logits).all()]
+        tok, pos, out, step_s = torch.argmax(logits, -1), valid.clone(), [], []
+        for _ in range(SSM_STEPS):
+            t0 = time.perf_counter()
+            logits, cache = model.decode(params, tok[:, None], pos, cache)
+            tok = torch.argmax(logits, -1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            finite.append(torch.isfinite(logits).all())
+            out.append(tok)
+            pos = pos + 1
+        launched = {name: k.launches for name, k in kernels.items()}  # prefill and decode
+        finite.append(torch.isfinite(cache["state"]).all())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out = torch.stack(out, 1)
+        check(all(bool(f) for f in finite), f"[ssm] {arch}: a logit row or the state was not finite")
+        check(tuple(out.shape) == (len(SSM_PROMPTS), SSM_STEPS), f"[ssm] {arch}: tokens {out.shape}")
+        want = {"ssd_scan": cfg.num_layers}
+        if cfg.hybrid_period:
+            ns = cfg.num_layers // cfg.hybrid_period
+            want.update(prefill_attention=ns, decode_attention=ns * SSM_STEPS)
+        for name, n in want.items():
+            check(launched[name] == n, f"[ssm] {arch}: {name} launched {launched[name]} times, "
+                  f"expected {n}")
+        say(f"[ssm] {arch}: prefill of {len(SSM_PROMPTS)} prompts {list(SSM_PROMPTS)} "
+            f"(right-padded to {max(SSM_PROMPTS)}) {1e3 * prefill_s:.2f} ms; handoff into "
+            f"init_cache({len(SSM_PROMPTS)}, {SSM_MAX_LEN}); {SSM_STEPS} greedy decode steps mean "
+            f"{1e3 * sum(step_s) / len(step_s):.2f} ms (first {1e3 * step_s[0]:.2f} ms); launches "
+            f"{launched}; peak memory {peak:.2f} GiB; all logits and states finite; request 3's "
+            f"first tokens {out[3, :8].tolist()} [{card}]")
+        if arch == "zamba2-2.7b":
+            ctx["launches"]["ssd_scan"] = launched["ssd_scan"]  # counts zeroed just before
+        del params, cache, logits
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------- main
@@ -483,7 +756,8 @@ def main() -> int:
     ctx: dict = {}
     t_start = time.perf_counter()
     try:
-        for phase in (phase_device, phase_build, phase_kernels, phase_serve, phase_parity):
+        for phase in (phase_device, phase_build, phase_kernels, phase_serve, phase_parity,
+                      phase_ssm):
             t0 = time.perf_counter()
             phase(ctx)
             name = phase.__name__.removeprefix("phase_")
@@ -495,7 +769,8 @@ def main() -> int:
     rows = ctx["kernel_rows"]
     for r in rows:
         r.pop("shape")
-        r["launches"] = ctx["launches"][r["name"]]  # the slot serve, counts zeroed before it
+        # attention: the slot serve; ssd_scan: the zamba2 prefill; counts zeroed before each
+        r["launches"] = ctx["launches"][r["name"]]
     say(json.dumps({"kernels": rows}))
     say(f"card: {ctx['card']}")
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

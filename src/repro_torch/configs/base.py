@@ -1,5 +1,5 @@
-"""Model configuration schema (a copy of ``repro.configs.base``; the
-derived counts the dry-run and roofline use are not copied).
+"""Model configuration schema (a copy of ``repro.configs.base``; of the
+derived counts only those the model code reads are copied).
 
 Every assigned architecture is expressed as a ``ModelConfig``, a frozen
 dataclass, so the port reads the same architectures as the reference.
@@ -75,6 +75,14 @@ class ModelConfig:
         if self.num_heads:
             return self.d_model // self.num_heads
         return 0
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,4 +1,4 @@
-// Shared helpers of the attention kernels: element conversion and 16-byte
+// Shared helpers of the kernels: element conversion and 16-byte
 // row loads from global memory into f32 tiles in shared memory.
 #pragma once
 

@@ -182,6 +182,7 @@ int dispatch(int Dh, const void* q, const void* k, const void* v, const void* kv
     case 16: return launch<T, 16>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, cap, stream);
     case 32: return launch<T, 32>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, cap, stream);
     case 64: return launch<T, 64>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, cap, stream);
+    case 80: return launch<T, 80>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, cap, stream);
     case 128: return launch<T, 128>(q, k, v, kv_len, out, B, S, Hq, Hkv, scale, cap, stream);
     default: return (int)cudaErrorInvalidValue;
   }

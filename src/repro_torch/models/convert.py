@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import hybrid_blocks, check_supported
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -39,9 +39,18 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, device: DeviceL
 
     params = conv(np_params)
     want = {"embed", "final_norm", "layers"} | ({"lm_head"} if not cfg.tie_embeddings else set())
+    if cfg.family == "hybrid":
+        want.add("shared_attn")
     if set(params) != want:
         raise ValueError(f"parameter tree has keys {sorted(params)}, expected {sorted(want)}")
-    n = params["layers"]["attn"]["wq"].shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"parameter tree has {n} layers, config {cfg.name} has {cfg.num_layers}")
+    # the layer axes: (L,) for dense and ssm, (super-blocks, per block) for hybrid
+    if cfg.family == "dense":
+        lead, expect = params["layers"]["attn"]["wq"].shape[:1], (cfg.num_layers,)
+    elif cfg.family == "ssm":
+        lead, expect = params["layers"]["ssm"]["in_proj"].shape[:1], (cfg.num_layers,)
+    else:
+        lead, expect = params["layers"]["ssm"]["in_proj"].shape[:2], hybrid_blocks(cfg)
+    if tuple(lead) != tuple(expect):
+        raise ValueError(f"parameter tree has layer axes {tuple(lead)}, config {cfg.name} "
+                         f"has {tuple(expect)}")
     return params

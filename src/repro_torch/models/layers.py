@@ -1,4 +1,4 @@
-"""Neural-net layers of the dense decoder, in PyTorch (port of
+"""Neural-net layers of the decoder families, in PyTorch (port of
 ``repro.models.layers``).
 
 Conventions, as in the JAX package
@@ -44,6 +44,17 @@ def dtype_of(name: str) -> torch.dtype:
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     orig = x.dtype
     x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(orig)
+
+
+def gated_rms_norm(
+    x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """Mamba2-style RMSNorm(x * silu(gate))."""
+    orig = x.dtype
+    x = x.float() * F.silu(gate.float())
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(orig)

@@ -1,4 +1,5 @@
-"""Model API over the dense decoder (port of ``repro.models.model``).
+"""Model API over the dense, ssm and hybrid decoders (port of
+``repro.models.model``).
 
   model = build_model(cfg)
   params = model.init(seed, device="cuda")

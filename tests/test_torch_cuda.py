@@ -1,5 +1,5 @@
-"""The port on the card: the kernel wrappers' argument checks and a small
-serve whose attention goes through the kernels. The kernels themselves are
+"""The port on the card: the kernel wrappers' argument checks (attention
+and SSD scan) and a small serve whose attention goes through the kernels. The kernels themselves are
 held against their plain versions on the card by ``chip_smoke.py`` alone
 (the sweep of tests/test_kernels.py and the serving shapes). Every test is
 marked ``cuda`` and skips without a card; this file imports no JAX, so it
@@ -15,6 +15,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.request import Request, SLOSpec  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
 from repro_torch.kernels.prefill_attention.ops import prefill_attention  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import DisaggServer, EngineConfig, reference_generate  # noqa: E402
 
@@ -41,6 +42,35 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     strided = torch.zeros(1, 2, 8, 32, device=cuda).transpose(1, 2)  # (1, 8, 2, 32)
     with pytest.raises(ValueError, match="contiguous"):
         decode_attention(q, strided, k, torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    def args(b=1, l=40, h=2, p=16, n=16, dtype=torch.float32):
+        return [torch.zeros(b, l, h, p, device=cuda, dtype=dtype),
+                torch.zeros(b, l, h, device=cuda), -torch.ones(h, device=cuda),
+                torch.zeros(b, l, n, device=cuda, dtype=dtype),
+                torch.zeros(b, l, n, device=cuda, dtype=dtype)]
+
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd(*args(p=24))
+    with pytest.raises(ValueError, match="state_dim"):
+        ssd(*args(n=8))
+    with pytest.raises(ValueError, match="chunk"):
+        ssd(*args(), chunk=256)
+    x, dt, A, Bm, Cm = args()
+    with pytest.raises(ValueError, match="float32"):
+        ssd(x, dt.bfloat16(), A, Bm, Cm)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        ssd(x, dt, A, Bm.bfloat16(), Cm)
+    with pytest.raises(ValueError, match="init_state"):
+        ssd(x, dt, A, Bm, Cm, init_state=torch.zeros(1, 2, 16, 8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="is on"):
+        ssd(x, dt.cpu(), A, Bm, Cm)
+    n0 = ssd.launches
+    y, fs = ssd(x, dt, A, Bm, Cm, chunk=16)
+    assert ssd.launches == n0 + 1 and y.shape == x.shape and fs.shape == (1, 2, 16, 16)
 
 
 @pytest.mark.parametrize("page_size", [None, 8])

@@ -33,12 +33,14 @@ PREFILL_CASES = [
     (2, 100, 300, 6, 2, 32),  # unaligned seq
     (1, 256, 512, 4, 1, 128),  # MQA
     (3, 32, 160, 4, 2, 16),  # tiny head dim
+    (2, 96, 96, 4, 4, 80),  # zamba2's shared attention: MHA, head dim 80
 ]
 DECODE_CASES = [
     (4, 512, 8, 2, 64),
     (2, 300, 4, 4, 128),
     (1, 1024, 16, 2, 32),
     (3, 96, 8, 1, 128),
+    (2, 260, 4, 4, 80),  # zamba2's shared attention: qpk 1, head dim 80
 ]
 
 

@@ -165,5 +165,8 @@ def test_device_rule():
              "seamless-m4t-medium-smoke", "chameleon-34b-smoke", "gemma2-9b-smoke"],
 )
 def test_configs_outside_the_slice_raise(arch):
+    # the ssm and hybrid families are ported; what stays outside for them is
+    # more than one B/C group
+    outside = {"mamba2-130m-smoke": dict(ssm_ngroups=2), "zamba2-2.7b-smoke": dict(ssm_ngroups=2)}
     with pytest.raises(NotImplementedError):
-        build_model(get_config(arch))
+        build_model(get_config(arch).replace(**outside.get(arch, {})))

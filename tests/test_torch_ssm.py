@@ -1,0 +1,201 @@
+"""The port's SSD scan and Mamba2 block against ``repro``'s on the CPU.
+
+The `ssd` wrapper (its plain version on a CPU tensor) is held against JAX
+``ssd_chunked`` over the sweep of tests/test_kernels.py, a sequence shorter
+than one chunk and an initial state, and against the JAX Pallas wrapper in
+interpret mode, all in f32 at 1e-4 (the JAX kernel test's tolerance). The
+Mamba2 layers (``gated_rms_norm``, ``causal_conv``, ``ssm_forward``,
+``ssm_decode_step``) are held against their JAX twins at
+``mamba2-130m-smoke`` f32 within 2e-4, with the JAX initializer's weights.
+The CUDA kernel itself is held against the plain version on the card by
+chip_smoke.py.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.kernels.ssd_scan.ops import ssd as jax_ssd  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
+from repro.models import ssm as js  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
+from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models import ssm as ts  # noqa: E402
+from repro_torch.models.convert import _tensor  # noqa: E402
+
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_kernels.py
+MODEL_TOL = dict(rtol=2e-4, atol=2e-4)  # tests/test_models_numerics.py
+
+SSD_CASES = [
+    (2, 256, 4, 64, 32, 64),  # the sweep of tests/test_kernels.py
+    (1, 100, 2, 32, 16, 32),
+    (2, 128, 8, 16, 64, 128),
+    (2, 50, 3, 16, 32, 128),  # L shorter than one chunk
+]
+
+
+def _ssd_inputs(rng, b, l, h, p, n):
+    x = (rng.standard_normal((b, l, h, p)) * 0.5).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, (b, l, h)).astype(np.float32)
+    A = (-rng.uniform(0.5, 4.0, (h,))).astype(np.float32)
+    Bm = (rng.standard_normal((b, l, n)) * 0.3).astype(np.float32)
+    Cm = (rng.standard_normal((b, l, n)) * 0.3).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_matches_jax_ssd_chunked(case, rng):
+    b, l, h, p, n, chunk = case
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, b, l, h, p, n)
+    yr, fsr = js.ssd_chunked(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(A),
+                             jnp.asarray(Bm[:, :, None]), jnp.asarray(Cm[:, :, None]), chunk)
+    y, fs = ssd(*_t(x, dt, A, Bm, Cm), chunk=chunk)
+    assert y.dtype == torch.float32 and fs.shape == (b, h, p, n)
+    np.testing.assert_allclose(_np(y), np.asarray(yr), **SSD_TOL)
+    np.testing.assert_allclose(_np(fs), np.asarray(fsr), **SSD_TOL)
+
+
+def test_ssd_with_initial_state_matches_jax(rng):
+    b, l, h, p, n, chunk = 2, 160, 4, 32, 16, 64
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, b, l, h, p, n)
+    s0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    yr, fsr = js.ssd_chunked(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(A),
+                             jnp.asarray(Bm[:, :, None]), jnp.asarray(Cm[:, :, None]), chunk,
+                             jnp.asarray(s0))
+    y, fs = ssd(*_t(x, dt, A, Bm, Cm), chunk=chunk, init_state=torch.from_numpy(s0))
+    np.testing.assert_allclose(_np(y), np.asarray(yr), **SSD_TOL)
+    np.testing.assert_allclose(_np(fs), np.asarray(fsr), **SSD_TOL)
+
+
+@pytest.mark.parametrize("case", [(1, 100, 2, 32, 16, 32), (2, 128, 8, 16, 64, 128)])
+def test_ssd_matches_pallas_interpret(case, rng):
+    """The port's wrapper against the JAX Pallas wrapper in interpret mode."""
+    b, l, h, p, n, chunk = case
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, b, l, h, p, n)
+    yr, fsr = jax_ssd(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=chunk)
+    y, fs = ssd(*_t(x, dt, A, Bm, Cm), chunk=chunk)
+    np.testing.assert_allclose(_np(y), np.asarray(yr), **SSD_TOL)
+    np.testing.assert_allclose(_np(fs), np.asarray(fsr), **SSD_TOL)
+
+
+def test_ssd_state_feeds_decode(rng):
+    """The twin of tests/test_kernels.py::test_ssd_kernel_state_feeds_decode:
+    the scan's final state continues through one recurrent step."""
+    b, l, h, p, n = 1, 64, 2, 16, 8
+    x, dt, A, Bm, Cm = _t(*_ssd_inputs(rng, b, l + 1, h, p, n))
+    y_all, _ = ssd(x, dt, A, Bm, Cm, chunk=32)
+    _, fs = ssd(x[:, :l], dt[:, :l], A, Bm[:, :l], Cm[:, :l], chunk=32)
+    dA = torch.exp(dt[:, l] * A)  # (b, h)
+    inc = torch.einsum("bhp,bn->bhpn", x[:, l] * dt[:, l][..., None], Bm[:, l])
+    state = fs * dA[..., None, None] + inc
+    y_step = torch.einsum("bn,bhpn->bhp", Cm[:, l], state)
+    np.testing.assert_allclose(_np(y_step), _np(y_all[:, l]), **SSD_TOL)
+
+
+def test_cpu_ssd_does_not_launch(rng):
+    before = ssd.launches
+    ssd(*_t(*_ssd_inputs(rng, 1, 20, 2, 16, 16)), chunk=8)
+    assert ssd.launches == before
+
+
+def test_ssd_rejects_a_missing_sequence():
+    with pytest.raises(ValueError, match="L >= 1"):
+        ssd(torch.zeros(1, 0, 2, 16), torch.zeros(1, 0, 2), torch.ones(2), torch.zeros(1, 0, 16),
+            torch.zeros(1, 0, 16))
+
+
+# ---------------------------------------------------------------- Mamba2 block
+
+@pytest.fixture(scope="module")
+def block():
+    """mamba2-130m-smoke f32: the JAX config, the port's, one layer's JAX
+    weights and the same weights as tensors."""
+    jcfg = jax_get_config("mamba2-130m-smoke").replace(dtype="float32")
+    cfg = get_config("mamba2-130m-smoke").replace(dtype="float32")
+    jp = js.init_ssm_params(jax.random.key(0), jcfg, jnp.float32)
+    tp = {k: _tensor(np.asarray(v), torch.device("cpu")) for k, v in jp.items()}
+    return jcfg, cfg, jp, tp
+
+
+def test_gated_rms_norm_matches_jax(rng):
+    x = rng.standard_normal((2, 5, 48)).astype(np.float32)
+    gate = rng.standard_normal((2, 5, 48)).astype(np.float32)
+    w = (rng.standard_normal(48) * 0.1).astype(np.float32)
+    ref = jl.gated_rms_norm(jnp.asarray(x), jnp.asarray(gate), jnp.asarray(w), 1e-6)
+    out = tl.gated_rms_norm(*_t(x, gate, w), 1e-6)
+    np.testing.assert_allclose(_np(out), np.asarray(ref), **MODEL_TOL)
+
+
+def test_causal_conv_matches_jax(block, rng):
+    jcfg, _, jp, tp = block
+    x = rng.standard_normal((2, 9, ts.conv_channels(jcfg))).astype(np.float32)
+    ref = js.causal_conv(jnp.asarray(x), jp["conv_w"], jp["conv_b"])
+    out = ts.causal_conv(torch.from_numpy(x), tp["conv_w"], tp["conv_b"])
+    np.testing.assert_allclose(_np(out), np.asarray(ref), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("with_cache", [False, True])
+def test_ssm_forward_matches_jax(block, with_cache, rng):
+    """Unpadded prompts (C2 makes padded ones differ from the reference on
+    purpose), with and without a cache to continue from."""
+    jcfg, cfg, jp, tp = block
+    b, l = 2, 37
+    x = (rng.standard_normal((b, l, cfg.d_model)) * 0.3).astype(np.float32)
+    jcache = tcache = None
+    if with_cache:
+        conv = rng.standard_normal((b, cfg.ssm_conv_width - 1, ts.conv_channels(cfg)))
+        state = rng.standard_normal((b, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim))
+        conv, state = conv.astype(np.float32), state.astype(np.float32)
+        jcache = dict(conv=jnp.asarray(conv), state=jnp.asarray(state))
+        tcache = dict(conv=torch.from_numpy(conv), state=torch.from_numpy(state))
+    yr, cr = js.ssm_forward(jp, jnp.asarray(x), jcfg, init_cache=jcache)
+    y, c = ts.ssm_forward(tp, torch.from_numpy(x), cfg, init_cache=tcache)
+    np.testing.assert_allclose(_np(y), np.asarray(yr), **MODEL_TOL)
+    for k in ("conv", "state"):
+        assert c[k].dtype == torch.float32
+        np.testing.assert_allclose(_np(c[k]), np.asarray(cr[k]), **MODEL_TOL)
+
+
+def test_ssm_decode_step_matches_jax(block, rng):
+    jcfg, cfg, jp, tp = block
+    b = 3
+    x = (rng.standard_normal((b, 1, cfg.d_model)) * 0.3).astype(np.float32)
+    conv = rng.standard_normal((b, cfg.ssm_conv_width - 1, ts.conv_channels(cfg)))
+    state = rng.standard_normal((b, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim))
+    conv, state = conv.astype(np.float32), state.astype(np.float32)
+    yr, cr = js.ssm_decode_step(jp, jnp.asarray(x), jcfg,
+                                dict(conv=jnp.asarray(conv), state=jnp.asarray(state)))
+    y, c = ts.ssm_decode_step(tp, torch.from_numpy(x), cfg,
+                              dict(conv=torch.from_numpy(conv), state=torch.from_numpy(state)))
+    np.testing.assert_allclose(_np(y), np.asarray(yr), **MODEL_TOL)
+    for k in ("conv", "state"):
+        np.testing.assert_allclose(_np(c[k]), np.asarray(cr[k]), **MODEL_TOL)
+
+
+def test_init_ssm_params_follow_the_reference_distributions():
+    cfg = get_config("mamba2-130m")
+    p = ts.init_ssm_params(torch.Generator().manual_seed(0), cfg, torch.bfloat16,
+                           torch.device("cpu"))
+    jshapes = jax.eval_shape(lambda k: js.init_ssm_params(k, jax_get_config("mamba2-130m"),
+                                                          jnp.bfloat16), jax.random.key(0))
+    assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch.")) for k, v in p.items()} == {
+        k: (v.shape, str(v.dtype)) for k, v in jshapes.items()}
+    dt = torch.nn.functional.softplus(p["dt_bias"])  # inverse-softplus of U-log[1e-3, 1e-1]
+    assert float(dt.min()) >= 1e-3 - 1e-6 and float(dt.max()) <= 0.1 + 1e-6
+    a = torch.exp(p["A_log"])
+    assert float(a.min()) >= 1.0 and float(a.max()) <= 16.0
+    assert torch.equal(p["D"], torch.ones_like(p["D"])) and not p["norm"].any()
+    assert abs(float(p["conv_w"].float().std()) - 0.5) < 0.02  # N(0, 1) / sqrt(W = 4)
