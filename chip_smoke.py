@@ -13,10 +13,17 @@ Phases, each printed on its own lines:
            the sweep of tests/test_kernels.py and at the serving shapes of
            llama3-8b (attention), zamba2-2.7b (attention at Dh=80, SSD scan)
            and mamba2-130m (SSD scan), each in f32 (attention tol 2e-5, SSD
-           1e-4) and bf16 (tol 2e-2), with bf16 times, bounds and, for
-           attention, a library call as yardstick; any mismatch beyond
-           tolerance fails the run. This is the one on-card check of the
-           kernels against their plain versions
+           1e-4) and bf16 (tol 2e-2; bf16 prefill also within 6e-3 in
+           relative norm of the plain version in f32, logit cap included),
+           with bf16 times (per call as its caller sees it, each run after
+           an L2 flush, and the device time alone beside it), bounds and,
+           for attention, a library call as yardstick; any mismatch
+           beyond tolerance fails the run. The attention edges are
+           checked bit for bit: NaN in the cache past kv_len changes no
+           output (both kernels, both dtypes), and a sequence decoded alone equals it
+           inside a batch of 8; decode at kv_len 1, at split boundaries
+           and over several splits is held to the tolerance. This is the
+           one on-card check of the kernels against their plain versions
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
            policies, slot then paged KV; both attention kernels must launch
@@ -51,6 +58,15 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense, same sheet
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}  # atol = rtol, as tests/test_kernels.py
+# bf16 prefill, relative to the f32 plain version (`_prefill_ref_f32`), beside
+# the 2e-2 elementwise tolerance: the 2e-2 is some two thirds of a typical
+# output at the serving shapes, so a dropped tile or a causal edge one row off
+# would pass it. This limit is about twice the largest reading on an H100
+# (2.8e-3 over the sweep and the serving shapes) and fails both: the kernels
+# phase checks that a causal edge one row off moves the output by more than
+# twice it at each serving shape (2.4e-2 at the llama3-8b chunk).
+BF16_PREFILL_REL = 6e-3
+SLEEP_CYCLES = 2_000_000  # ~1 ms of device spin at the H100's clock (`_time_ms`)
 
 
 class SmokeFailure(Exception):
@@ -101,9 +117,15 @@ def phase_build(ctx) -> None:
 
 
 # -------------------------------------------------------------------- kernels
-def _time_ms(fn, *, iters: int, flush) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs, each after an L2
-    flush (the serving path finds each layer's K/V cold)."""
+def _time_ms(fn, *, iters: int, flush, device_only: bool = False) -> float:
+    """Mean time of ``fn`` over ``iters`` runs, each after an L2 flush (the
+    serving path finds each layer's K/V cold), between two CUDA events: the
+    time per call as its caller sees it, which is the device's time or,
+    where the host takes longer to issue the call than the flush takes to
+    run, the host's. The kernel table's ``ms``, ``plain_ms`` and
+    ``library_ms`` are this. With ``device_only`` the device first spins
+    ~1 ms, so the host has queued all of ``fn`` before the first event and
+    the events bracket device time alone (``device_ms``)."""
     import torch
 
     fn()
@@ -111,6 +133,8 @@ def _time_ms(fn, *, iters: int, flush) -> float:
     total = 0.0
     for _ in range(iters):
         flush()
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -119,6 +143,41 @@ def _time_ms(fn, *, iters: int, flush) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def _rel_err(out, ref) -> float:
+    """||out - ref|| / ||ref||, over the whole tensor."""
+    return float((out.float() - ref.float()).norm() / ref.float().norm())
+
+
+def _prefill_ref_f32(q, k, v, q_pos, kv_len, logit_cap=0.0):
+    """The plain version of prefill attention computed in f32 from the same
+    (bf16) inputs, with P rounded to bf16 before P.V as the kernel and the
+    reference round it, and the output left in f32: what the bf16 kernel is
+    held to in relative norm (`BF16_PREFILL_REL`)."""
+    import torch
+
+    from repro_torch.kernels.prefill_attention.ref import NEG_INF
+
+    rep = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / q.shape[-1] ** 0.5
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    kvp = torch.arange(k.shape[1], device=q.device)
+    mask = (kvp[None, None, :] <= q_pos[:, :, None]) & (kvp[None, None, :] < kv_len[:, None, None])
+    p = torch.softmax(torch.where(mask[:, None], s, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), vf)
+
+
+def _check_bf16_prefill(out, q, k, v, q_pos, kv_len, what, logit_cap=0.0) -> float:
+    """The bf16 prefill kernel's output against `_prefill_ref_f32` in
+    relative norm; returns the reading."""
+    rel = _rel_err(out, _prefill_ref_f32(q, k, v, q_pos, kv_len, logit_cap))
+    check(rel <= BF16_PREFILL_REL, f"prefill_attention bf16 {what}: relative error {rel:.3e} "
+          f"beyond {BF16_PREFILL_REL}")
+    return rel
 
 
 def _max_err(out, ref) -> float:
@@ -149,6 +208,7 @@ def phase_kernels(ctx) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     sweep_err = {"prefill_attention": 0.0, "decode_attention": 0.0}
+    sweep_rel = 0.0  # bf16 prefill, relative to the f32 plain version
 
     def ints(lo, hi, n):
         return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
@@ -157,7 +217,7 @@ def phase_kernels(ctx) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         for b, sq, skv, hq, hkv, dh in [
             (2, 128, 256, 4, 2, 64), (1, 64, 64, 8, 8, 128), (2, 100, 300, 6, 2, 32),
-            (1, 256, 512, 4, 1, 128), (3, 32, 160, 4, 2, 16),
+            (1, 256, 512, 4, 1, 128), (3, 32, 160, 4, 2, 16), (2, 96, 96, 4, 4, 80),
         ]:
             q = _randn(gen, (b, sq, hq, dh), dtype)
             k = _randn(gen, (b, skv, hkv, dh), dtype)
@@ -171,6 +231,9 @@ def phase_kernels(ctx) -> None:
             sweep_err["prefill_attention"] = max(sweep_err["prefill_attention"], err)
             check(_close(out, ref, dtype),
                   f"prefill_attention {dtype} {(b, sq, skv, hq, hkv, dh)}: max err {err}")
+            if dtype == torch.bfloat16:
+                sweep_rel = max(sweep_rel, _check_bf16_prefill(
+                    out, q, k, v, q_pos, kv_len, str((b, sq, skv, hq, hkv, dh))))
         for b, s, hq, hkv, dh in [
             (4, 512, 8, 2, 64), (2, 300, 4, 4, 128), (1, 1024, 16, 2, 32), (3, 96, 8, 1, 128),
         ]:
@@ -201,6 +264,16 @@ def phase_kernels(ctx) -> None:
                                torch.tensor([128, 77], device=dev, dtype=torch.int32),
                                logit_cap=30.0)
     check(_close(out, ref, torch.float32), f"decode logit cap: max err {_max_err(out, ref)}")
+    # logit cap 30 in bf16, on the wgmma kernel, at llama3-8b's chunk shape
+    q = _randn(gen, (1, 512, 32, 128), torch.bfloat16, 3.0)
+    k = _randn(gen, (1, 2048, 8, 128), torch.bfloat16, 3.0)
+    v = _randn(gen, (1, 2048, 8, 128), torch.bfloat16)
+    q_pos = (torch.arange(512, device=dev, dtype=torch.int32) + 1536)[None].contiguous()
+    kv_len = torch.tensor([2048], device=dev, dtype=torch.int32)
+    out = prefill_attention(q, k, v, q_pos, kv_len, logit_cap=30.0)
+    ref = prefill_attention_ref(q, k, v, q_pos, kv_len, logit_cap=30.0)
+    check(_close(out, ref, torch.bfloat16), f"prefill logit cap bf16: max err {_max_err(out, ref)}")
+    cap_rel = _check_bf16_prefill(out, q, k, v, q_pos, kv_len, "logit cap 30", logit_cap=30.0)
     # stale tail: entries past kv_len leave the output bit-identical
     q = _randn(gen, (2, 4, 32), torch.float32)
     k = _randn(gen, (2, 256, 2, 32), torch.float32)
@@ -212,9 +285,12 @@ def phase_kernels(ctx) -> None:
     v2[:, 200:] = -1e4
     out2 = decode_attention(q, k2, v2, kv_len)
     check(torch.equal(out1, out2), "decode_attention: stale cache tail changed the output")
-    say(f"[kernels] sweep ok (f32 tol 2e-5, bf16 tol 2e-2, logit cap 30, stale tail "
-        f"bit-identical); max abs err prefill {sweep_err['prefill_attention']:.3e} "
-        f"decode {sweep_err['decode_attention']:.3e}")
+    say(f"[kernels] sweep ok (f32 tol 2e-5, bf16 tol 2e-2, every Dh of HEAD_DIMS, logit cap 30, "
+        f"stale tail bit-identical); max abs err prefill {sweep_err['prefill_attention']:.3e} "
+        f"decode {sweep_err['decode_attention']:.3e}; bf16 prefill relative error (limit "
+        f"{BF16_PREFILL_REL}) sweep max {sweep_rel:.3e}, logit cap 30 at the llama3-8b chunk "
+        f"{cap_rel:.3e}")
+    _attention_edge_checks(gen)
 
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB of L2
 
@@ -235,13 +311,79 @@ def phase_kernels(ctx) -> None:
         _decode_row(gen, flush, 4, 2080, 32, 32, 80, [2080, 1568, 732, 162]),
     ]
     for r in rows + extra:
-        say(f"[kernels] {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), max abs err bf16 {r['max_abs_err']:.3e} (tol {r['tol']}), "
-            f"f32 {r['max_abs_err_f32']:.3e} (tol {TOL['torch.float32']}) "
-            f"[{ctx['card']}]")
+        rel = (f", relative error bf16 {r.pop('rel_err'):.3e} (limit {BF16_PREFILL_REL}; "
+               f"causal edge one row off: {r.pop('edge_rel'):.3e})" if "rel_err" in r else "")
+        say(f"[kernels] {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms per call (device "
+            f"alone {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{r['library_ms']:.4f} ms (device alone {r['library_device_ms']:.4f} ms), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err bf16 {r['max_abs_err']:.3e} "
+            f"(tol {r['tol']}), f32 {r['max_abs_err_f32']:.3e} (tol {TOL['torch.float32']})"
+            f"{rel} [{ctx['card']}]")
     rows.append(_ssd_checks(ctx, gen, flush))
     ctx["kernel_rows"] = rows
+
+
+def _attention_edge_checks(gen) -> None:
+    """The edges of the redesigned kernels: NaN in the cache past kv_len
+    (both kernels, f32 and bf16, kv_len ending inside a tile) leaves the
+    output bit-identical to a clean tail; decode at kv_len 1, at a split
+    boundary and over several splits within tolerance; and one sequence
+    decoded alone equals, bit for bit, the same sequence inside a batch of
+    8, and inside a cache cut to its own kv_len."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import SPLIT_ROWS, decode_attention_ref
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+
+    dev = torch.device("cuda")
+
+    def nan_tail(t, lens):
+        t = t.clone()
+        for i, n in enumerate(lens):
+            t[i, n:] = float("nan")
+        return t
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        # prefill: chunks whose kv_len ends inside a 64-row tile
+        b, sq, skv, hq, hkv, dh = 2, 100, 300, 8, 2, 128
+        q = _randn(gen, (b, sq, hq, dh), dtype)
+        k = _randn(gen, (b, skv, hkv, dh), dtype)
+        v = _randn(gen, (b, skv, hkv, dh), dtype)
+        lens = [237, 150]
+        kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+        q_pos = (kv_len[:, None] - sq + torch.arange(sq, device=dev, dtype=torch.int32)).contiguous()
+        out1 = prefill_attention(q, k, v, q_pos, kv_len)
+        out2 = prefill_attention(q, nan_tail(k, lens), nan_tail(v, lens), q_pos, kv_len)
+        check(torch.equal(out1, out2), f"prefill_attention {dtype}: NaN past kv_len changed the output")
+        if dtype == torch.bfloat16:
+            _check_bf16_prefill(out1, q, k, v, q_pos, kv_len, f"kv_len {lens}")
+        # decode: kv_len 1, at split boundaries, over several splits, and NaN past it
+        b, s, hq, hkv, dh = 8, 4 * SPLIT_ROWS + 40, 32, 8, 128
+        lens = [1, SPLIT_ROWS, SPLIT_ROWS + 1, 2 * SPLIT_ROWS, 3 * SPLIT_ROWS - 1, 77, 4 * SPLIT_ROWS + 40,
+                4 * SPLIT_ROWS + 3]
+        kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
+        q = _randn(gen, (b, hq, dh), dtype)
+        k = _randn(gen, (b, s, hkv, dh), dtype)
+        v = _randn(gen, (b, s, hkv, dh), dtype)
+        out = decode_attention(q, k, v, kv_len)
+        ref = decode_attention_ref(q, k, v, kv_len)
+        worst = max(worst, _max_err(out, ref)) if dtype == torch.bfloat16 else worst
+        check(_close(out, ref, dtype), f"decode_attention {dtype} kv_len {lens}: max err "
+              f"{_max_err(out, ref)}")
+        out2 = decode_attention(q, nan_tail(k, lens), nan_tail(v, lens), kv_len)
+        check(torch.equal(out, out2), f"decode_attention {dtype}: NaN past kv_len changed the output")
+        for i in (0, 4, 6):  # batch invariance, and independence of S
+            alone = decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_len[i:i + 1])
+            cut = decode_attention(q[i:i + 1], k[i:i + 1, :lens[i]].contiguous(),
+                                   v[i:i + 1, :lens[i]].contiguous(), kv_len[i:i + 1])
+            check(torch.equal(alone, out[i:i + 1]) and torch.equal(cut, out[i:i + 1]),
+                  f"decode_attention {dtype}: sequence {i} alone differs from it in the batch")
+    say(f"[kernels] edges ok: NaN past kv_len bit-identical (prefill f32/bf16, kv_len inside a "
+        f"tile; decode f32/bf16); decode at kv_len 1, split boundaries ({SPLIT_ROWS}-row "
+        f"splits) and 5 splits within tolerance (bf16 max abs err {worst:.3e}); a sequence alone, "
+        f"in a batch of 8 and in a cache cut to its kv_len bit-identical")
 
 
 def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh) -> dict:
@@ -268,13 +410,19 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh) -> dict:
         errs[dtype] = _max_err(out, ref)
         check(_close(out, ref, dtype),
               f"prefill_attention at serving shape Dh={dh} {dtype}: max err {errs[dtype]}")
+    rel = _check_bf16_prefill(out, q, k, v, q_pos, kv_len, f"at serving shape Dh={dh}")
+    # what the limit must catch: the plain version with its causal edge one row off
+    edge_rel = _rel_err(_prefill_ref_f32(q, k, v, q_pos + 1, kv_len),
+                        _prefill_ref_f32(q, k, v, q_pos, kv_len))
+    check(edge_rel > 2 * BF16_PREFILL_REL, f"prefill_attention Dh={dh}: a causal edge one row "
+          f"off moves the output by {edge_rel:.3e}, not clearly beyond {BF16_PREFILL_REL}")
     kvp = torch.arange(skv, device=dev)
     mask = ((kvp[None, None, :] <= q_pos[:, :, None])
             & (kvp[None, None, :] < kv_len[:, None, None]))[:, None]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib = _time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                          enable_gqa=True),
-                   iters=20, flush=flush)
+    lib = lambda device_only: _time_ms(  # noqa: E731
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        iters=20, flush=flush, device_only=device_only)
     visible = torch.minimum(q_pos.long() + 1, kv_len.long()[:, None]).sum().item()
     kv_rows = min(skv, int(q_pos.max()) + 1)
     flops = 4 * hq * dh * visible
@@ -285,10 +433,13 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh) -> dict:
         replaces="src/repro/kernels/prefill_attention/kernel.py:83",
         max_abs_err=errs[torch.bfloat16], tol=TOL["torch.bfloat16"],
         max_abs_err_f32=errs[torch.float32],
+        rel_err=rel, edge_rel=edge_rel,
         ms=_time_ms(lambda: prefill_attention(q, k, v, q_pos, kv_len), iters=20, flush=flush),
+        device_ms=_time_ms(lambda: prefill_attention(q, k, v, q_pos, kv_len), iters=20,
+                           flush=flush, device_only=True),
         plain_ms=_time_ms(lambda: prefill_attention_ref(q, k, v, q_pos, kv_len), iters=5,
                           flush=flush),
-        library_ms=lib,
+        library_ms=lib(False), library_device_ms=lib(True),
         **_bound(flops, nbytes, "torch.bfloat16"),
         shape=f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} bf16, q_pos {skv - sq}..{skv - 1}",
     )
@@ -317,9 +468,9 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
               f"decode_attention at serving shape Dh={dh} {dtype}: max err {errs[dtype]}")
     dmask = (torch.arange(s, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
     qt4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    lib = _time_ms(lambda: F.scaled_dot_product_attention(qt4, kt, vt, attn_mask=dmask,
-                                                          enable_gqa=True),
-                   iters=50, flush=flush)
+    lib = lambda device_only: _time_ms(  # noqa: E731
+        lambda: F.scaled_dot_product_attention(qt4, kt, vt, attn_mask=dmask, enable_gqa=True),
+        iters=50, flush=flush, device_only=device_only)
     tot = int(kv_len.sum())
     flops = 4 * hq * dh * tot
     nbytes = 2 * (2 * tot * hkv * dh + 2 * b * hq * dh) + 4 * b
@@ -330,9 +481,11 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
         max_abs_err=errs[torch.bfloat16], tol=TOL["torch.bfloat16"],
         max_abs_err_f32=errs[torch.float32],
         ms=_time_ms(lambda: decode_attention(q, k, v, kv_len), iters=50, flush=flush),
+        device_ms=_time_ms(lambda: decode_attention(q, k, v, kv_len), iters=50, flush=flush,
+                           device_only=True),
         plain_ms=_time_ms(lambda: decode_attention_ref(q, k, v, kv_len), iters=10,
                           flush=flush),
-        library_ms=lib,
+        library_ms=lib(False), library_device_ms=lib(True),
         **_bound(flops, nbytes, "torch.bfloat16"),
         shape=f"B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh} bf16, kv_len {kv_len.tolist()}",
     )
@@ -386,6 +539,8 @@ def _ssd_checks(ctx, gen, flush) -> dict:
             if dtype == torch.bfloat16:
                 timed[name] = dict(
                     ms=_time_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=chunk), iters=20, flush=flush),
+                    device_ms=_time_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=chunk), iters=20,
+                                       flush=flush, device_only=True),
                     plain_ms=_time_ms(lambda: ssd_chunked(x, dt, A, Bm[:, :, None],
                                                           Cm[:, :, None], chunk),
                                       iters=5, flush=flush),
@@ -396,7 +551,8 @@ def _ssd_checks(ctx, gen, flush) -> dict:
     for name, (b, l, h, p, n, chunk) in serving.items():
         r = timed[name]
         say(f"[kernels] ssd_scan at {name} B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"{r['ms']:.4f} ms per call (device alone {r['device_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), max abs err bf16 {errs[(name, torch.bfloat16)]:.3e} (tol 2e-2), "
             f"f32 {errs[(name, torch.float32)]:.3e} (tol 1e-4), {b * h} blocks on "
             f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs [{ctx['card']}]")
@@ -406,7 +562,8 @@ def _ssd_checks(ctx, gen, flush) -> dict:
         replaces="src/repro/kernels/ssd_scan/kernel.py:85",
         max_abs_err=errs[("zamba2-2.7b", torch.bfloat16)], tol=tol[torch.bfloat16],
         max_abs_err_f32=errs[("zamba2-2.7b", torch.float32)],
-        ms=z["ms"], plain_ms=z["plain_ms"], library_ms=None,  # no one PyTorch call scans SSD
+        ms=z["ms"], device_ms=z["device_ms"], plain_ms=z["plain_ms"],
+        library_ms=None,  # no one PyTorch call scans SSD
         bound_ms=z["bound_ms"], bound_by=z["bound_by"], shape="zamba2-2.7b B=2 L=2048 bf16",
     )
 

@@ -2,7 +2,6 @@
 pointers, so everything it assumes is checked here before the launch."""
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
@@ -20,21 +19,25 @@ def check_tensors(kernel: str, device: torch.device, rows: Sequence[str],
                   **tensors: torch.Tensor) -> None:
     """Every tensor on ``device`` and contiguous; those named in ``rows``
     also 16-byte aligned (the kernels read their rows with 16-byte loads)."""
-    for name, t in tensors.items():
-        require(t.device == device, f"{kernel}: {name} is on {t.device}, expected {device}")
-        require(t.is_contiguous(), f"{kernel}: {name} must be contiguous")
-        if name in rows:
-            require(t.data_ptr() % 16 == 0, f"{kernel}: {name} must be 16-byte aligned")
+    for name, t in tensors.items():  # messages are formatted only on failure: this runs per launch
+        if t.device != device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+        if name in rows and t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
 
 
 def check_shape(kernel: str, name: str, t: torch.Tensor, shape: Sequence[int]) -> None:
-    require(tuple(t.shape) == tuple(shape), f"{kernel}: {name} has shape {tuple(t.shape)}, "
-            f"expected {tuple(shape)}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """The address of ``t``'s data: every entry point declares its pointer
+    arguments ``c_void_p`` (argtypes), so ctypes passes it at full width."""
+    return t.data_ptr()
 
 
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -7,6 +7,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // The reference's finite mask value: a fully masked tile then computes
 // exp(NEG_INF - NEG_INF) = 1 instead of inf - inf = NaN, and a real score
 // arriving later wipes it with exp(NEG_INF - m) = 0.
@@ -72,3 +74,18 @@ struct RowTile {
     }
   }
 };
+
+// Calls f(std::integral_constant<int, Dh>{}) for a head dimension the
+// attention kernels are built for (checks.HEAD_DIMS), so a kernel templated
+// on it is instantiated once per value; any other Dh is refused.
+template <class F>
+int with_head_dim(int Dh, F&& f) {
+  switch (Dh) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -4,7 +4,10 @@ Replaces the TPU kernel ``repro.kernels.decode_attention.kernel.
 flash_decode_attention`` and its grouping/padding wrapper. On a CPU tensor
 it calls the plain version (`ref.decode_attention_ref`); on a CUDA tensor
 it launches the kernel or raises. The kernel is bound by the bytes of K and
-V; it reads only the rows below ``kv_len`` (the kernel source says more).
+V; it reads only the rows below ``kv_len``. It splits the KV axis into
+fixed splits of `SPLIT_ROWS` rows, one block each, whose f32 partials go to
+scratch allocated here and are merged by a second kernel in the same C call
+(the kernel source says more).
 """
 from __future__ import annotations
 
@@ -21,10 +24,9 @@ from repro_torch.kernels.checks import (
     check_shape,
     check_tensors,
     ptr,
-    require,
     stream_ptr,
 )
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import SPLIT_ROWS, decode_attention_ref
 
 _K = "decode_attention"
 MAX_Q_PER_KV = 16  # query heads per KV head one block holds
@@ -37,7 +39,8 @@ def _lib() -> ctypes.CDLL:
         ptr_t, int_t, float_t = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [
             ptr_t, ptr_t, ptr_t, ptr_t, ptr_t,  # q, k, v, kv_len, out
-            int_t, int_t, int_t, int_t, int_t, int_t,  # B, S, Hq, Hkv, Dh, dtype
+            ptr_t, ptr_t,  # scratch: partial accumulators, partial (m, l)
+            int_t, int_t, int_t, int_t, int_t, int_t, int_t,  # B, S, Hq, Hkv, Dh, n_split, dtype
             float_t, float_t,  # scale, logit cap
             ptr_t,  # stream
         ]
@@ -57,28 +60,41 @@ def decode_attention(
     """One query token per sequence over its KV cache: (B,Hq,Dh) -> (B,Hq,Dh)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len, scale=scale, logit_cap=logit_cap)
-    require(q.device.type == "cuda", f"{_K}: unsupported device {q.device}")
-    require(q.dim() == 3 and k.dim() == 4, f"{_K}: q must be (B, Hq, Dh), k (B, S, Hkv, Dh)")
+    if q.device.type != "cuda":
+        raise ValueError(f"{_K}: unsupported device {q.device}")
+    if not (q.dim() == 3 and k.dim() == 4):
+        raise ValueError(f"{_K}: q must be (B, Hq, Dh), k (B, S, Hkv, Dh)")
     b, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    require(q.dtype in DTYPE_CODE, f"{_K}: dtype {q.dtype} not supported")
-    require(k.dtype == q.dtype and v.dtype == q.dtype, f"{_K}: q, k, v dtypes differ")
-    require(dh in HEAD_DIMS, f"{_K}: head_dim {dh} not in {HEAD_DIMS}")
-    require(hkv > 0 and hq % hkv == 0 and hq // hkv <= MAX_Q_PER_KV,
-            f"{_K}: Hq={hq}, Hkv={hkv}: need Hq a multiple of Hkv, at most "
-            f"{MAX_Q_PER_KV} query heads per KV head")
+    if q.dtype not in DTYPE_CODE:
+        raise ValueError(f"{_K}: dtype {q.dtype} not supported")
+    if not (k.dtype == q.dtype and v.dtype == q.dtype):
+        raise ValueError(f"{_K}: q, k, v dtypes differ")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{_K}: head_dim {dh} not in {HEAD_DIMS}")
+    if not (hkv > 0 and hq % hkv == 0 and hq // hkv <= MAX_Q_PER_KV):
+        raise ValueError(f"{_K}: Hq={hq}, Hkv={hkv}: need Hq a multiple of Hkv, at most "
+                         f"{MAX_Q_PER_KV} query heads per KV head")
+    if s < 1:
+        raise ValueError(f"{_K}: the cache has no rows (S = 0)")
     check_shape(_K, "k", k, (b, s, hkv, dh))
     check_shape(_K, "v", v, (b, s, hkv, dh))
     check_shape(_K, "kv_len", kv_len, (b,))
-    require(kv_len.dtype == torch.int32, f"{_K}: kv_len must be int32")
+    if kv_len.dtype != torch.int32:
+        raise ValueError(f"{_K}: kv_len must be int32")
     check_tensors(_K, q.device, ("q", "k", "v"), q=q, k=k, v=v, kv_len=kv_len)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    n_split = -(-s // SPLIT_ROWS)
+    # one f32 scratch buffer: the partial accumulators (B, Hq, n_split, Dh),
+    # then the partial (m, l) pairs (B, Hq, n_split, 2), 64-byte aligned
+    n_acc = b * hq * n_split * dh
+    part = torch.empty(n_acc + b * hq * n_split * 2, dtype=torch.float32, device=q.device)
     err = _lib().repro_decode_attention(
-        ptr(q), ptr(k), ptr(v), ptr(kv_len), ptr(out),
-        b, s, hq, hkv, dh, DTYPE_CODE[q.dtype], float(scale), float(logit_cap),
+        ptr(q), ptr(k), ptr(v), ptr(kv_len), ptr(out), ptr(part), ptr(part) + 4 * n_acc,
+        b, s, hq, hkv, dh, n_split, DTYPE_CODE[q.dtype], float(scale), float(logit_cap),
         stream_ptr(q.device),
     )
     if err != 0:

@@ -33,8 +33,8 @@ from repro_torch.serving.engine import DisaggServer
 from repro_torch.serving.session import ServeSession
 
 _GROUPS = (
-    ("prefill_attention", ("prefill_attention_kernel",)),
-    ("decode_attention", ("decode_attention_kernel",)),
+    ("prefill_attention", ("prefill_attention_wgmma", "prefill_attention_f32")),
+    ("decode_attention", ("decode_split", "decode_combine")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")),
     ("copy/index", ("index", "gather", "scatter", "copy", "memcpy", "memset", "cat")),
 )

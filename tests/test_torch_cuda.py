@@ -44,6 +44,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         decode_attention(q, strided, k, torch.ones(1, dtype=torch.int32, device=cuda))
 
 
+def test_attention_wrappers_reject_what_the_redesigned_kernels_do_not_take(cuda):
+    """The wgmma prefill kernel takes bf16 at the head dims it is built for
+    (f32 goes to the scalar kernel, nothing else anywhere); the split-KV
+    decode kernel takes at most 16 query heads per KV head and a cache of at
+    least one row."""
+    pos = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    kvl = torch.ones(1, dtype=torch.int32, device=cuda)
+    for dh in (24, 96, 256):  # bf16 head dims outside HEAD_DIMS
+        q = torch.zeros(1, 8, 4, dh, device=cuda, dtype=torch.bfloat16)
+        k = torch.zeros(1, 8, 2, dh, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            prefill_attention(q, k, k, pos, kvl)
+    q = torch.zeros(1, 8, 4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        prefill_attention(q, q[:, :, :2], q[:, :, :2], pos, kvl)
+    q = torch.zeros(1, 8, 4, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        prefill_attention(q, k.float(), k, pos, kvl)
+    with pytest.raises(ValueError, match="int32"):
+        prefill_attention(q, k, k, pos.long(), kvl)
+    with pytest.raises(ValueError, match="multiple"):
+        prefill_attention(torch.zeros(1, 8, 3, 64, device=cuda, dtype=torch.bfloat16), k, k,
+                          pos, kvl)
+    qd = torch.zeros(1, 32, 64, device=cuda, dtype=torch.bfloat16)  # 32 query heads per KV head
+    kd = torch.zeros(1, 8, 1, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at most"):
+        decode_attention(qd, kd, kd, kvl)
+    with pytest.raises(ValueError, match="no rows"):
+        decode_attention(qd[:, :4], kd[:, :0], kd[:, :0], kvl)
+    n0 = (prefill_attention.launches, decode_attention.launches)
+    prefill_attention(q, k, k, pos, kvl)
+    decode_attention(qd[:, :4].contiguous(), kd, kd, kvl)
+    assert (prefill_attention.launches, decode_attention.launches) == (n0[0] + 1, n0[1] + 1)
+
+
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     def args(b=1, l=40, h=2, p=16, n=16, dtype=torch.float32):
         return [torch.zeros(b, l, h, p, device=cuda, dtype=dtype),

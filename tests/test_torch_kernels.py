@@ -18,7 +18,11 @@ from repro.kernels.decode_attention.ref import decode_attention_ref as jax_decod
 from repro.kernels.prefill_attention.ops import prefill_attention as jax_prefill  # noqa: E402
 from repro.kernels.prefill_attention.ref import prefill_attention_ref as jax_prefill_ref  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    SPLIT_ROWS,
+    decode_attention_ref,
+    decode_attention_split_ref,
+)
 from repro_torch.kernels.prefill_attention.ops import prefill_attention  # noqa: E402
 from repro_torch.kernels.prefill_attention.ref import prefill_attention_ref  # noqa: E402
 
@@ -144,6 +148,50 @@ def test_decode_plain_ignores_stale_cache_tail(rng):
     k2[:, 200:] = 1e4
     v2[:, 200:] = -1e4
     assert torch.equal(out1, decode_attention(q, k2, v2, kv_len))
+
+
+# kv_len at and around the kernel's split boundaries, within one split and
+# spanning several (S = 3 splits less a few rows)
+SPLIT_KV_LENS = [1, SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1, 2 * SPLIT_ROWS, 3 * SPLIT_ROWS - 7]
+
+
+@pytest.mark.parametrize("kv_len", SPLIT_KV_LENS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_arithmetic_matches_jax_oracle(kv_len, dtype, rng):
+    """Per-split (m, l, acc) at the kernel's split length, merged in split
+    order, is the same function as the plain version and the JAX oracle."""
+    b, s, hq, hkv, dh = 2, 3 * SPLIT_ROWS - 7, 8, 2, 32
+    q = _both(rng.standard_normal((b, hq, dh)), dtype)
+    k = _both(rng.standard_normal((b, s, hkv, dh)), dtype)
+    v = _both(rng.standard_normal((b, s, hkv, dh)), dtype)
+    lens = np.array([kv_len, max(1, kv_len // 3)])
+    ref = jax_decode_ref(q[0], k[0], v[0], jnp.asarray(lens, jnp.int32))
+    kvl = torch.tensor(lens, dtype=torch.int32)
+    out = decode_attention_split_ref(q[1], k[1], v[1], kvl)
+    assert out.dtype == _TORCH[dtype] and out.shape == q[1].shape
+    np.testing.assert_allclose(_np(out), np.asarray(ref, np.float32), **_TOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(decode_attention_ref(q[1], k[1], v[1], kvl)),
+                               **_TOL[dtype])
+
+
+def test_decode_split_arithmetic_logit_cap_and_stale_tail(rng):
+    """The split arithmetic under a logit cap, and with NaN past kv_len:
+    the output is bit-identical to the one with a clean tail."""
+    b, s, hq, hkv, dh = 2, 2 * SPLIT_ROWS + 40, 4, 2, 16
+    q = torch.tensor(rng.standard_normal((b, hq, dh)) * 3, dtype=torch.float32)
+    k = torch.tensor(rng.standard_normal((b, s, hkv, dh)) * 3, dtype=torch.float32)
+    v = torch.tensor(rng.standard_normal((b, s, hkv, dh)), dtype=torch.float32)
+    kv_len = torch.tensor([SPLIT_ROWS + 3, 17], dtype=torch.int32)
+    out = decode_attention_split_ref(q, k, v, kv_len, logit_cap=30.0)
+    ref = jax_decode_ref(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+                         jnp.asarray(kv_len.numpy()), logit_cap=30.0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, SPLIT_ROWS + 3:] = float("nan")
+    v2[0, SPLIT_ROWS + 3:] = float("nan")
+    k2[1, 17:] = float("nan")
+    v2[1, 17:] = float("nan")
+    assert torch.equal(out, decode_attention_split_ref(q, k2, v2, kv_len, logit_cap=30.0))
 
 
 def test_cpu_wrappers_do_not_launch(rng):
