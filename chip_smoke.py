@@ -23,7 +23,17 @@ Phases, each printed on its own lines:
            output (both kernels, both dtypes), and a sequence decoded alone equals it
            inside a batch of 8; decode at kv_len 1, at split boundaries
            and over several splits is held to the tolerance. This is the
-           one on-card check of the kernels against their plain versions
+           one on-card check of the kernels against their plain versions.
+           The SSD scan runs two routes, printed per case: bf16 at its
+           shapes on tensor cores (ssd_state_pass + ssd_chunk_out), also
+           held within TC_REL_LIMIT (6e-3) in relative norm of the plain
+           version in f32, y and final state, over every Q x P x N of the
+           route at ragged L, L < Q, an initial state and a partial head
+           group; everything else (f32, other shapes) on the scalar kernel.
+           At the serving shapes two faults read off the plain version (the
+           diagonal dropped, one chunk's S_in not carried) must exceed twice
+           the limit, and bf16 is timed on both routes at B=2 and at the ssm
+           phase's B=4
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
            policies, slot then paged KV; both attention kernels must launch
@@ -36,14 +46,15 @@ Phases, each printed on its own lines:
            (random weights from a seed): Model.prefill of 4 right-padded
            prompts, handoff into a decode cache, 32 greedy Model.decode
            steps; the SSD scan (and for zamba2 both attention kernels) must
-           launch once per layer
+           launch once per layer, every SSD call on the tensor-core route;
+           the SSD scan's share of the prefill (layers x its B=4 time)
 
 Every phase runs on every call. It imports nothing of JAX or of the JAX
 package, exits non-zero when there is no card or when run outside the
 repository, and prints the kernel table and the card line before the last
 line, which is the ``{"ok": true, ...}`` record. The table's launches are
-the slot serve's (attention) and the zamba2 prefill's (SSD scan), each
-counted from zero.
+the slot serve's (attention) and the zamba2 prefill's (SSD scan, whose row
+is timed at that prefill's shape, B=4 L=2048), each counted from zero.
 """
 from __future__ import annotations
 
@@ -112,7 +123,8 @@ def phase_build(ctx) -> None:
         + " ".join(f"{k}={v[0]:.1f}s" for k, v in built.items()))
     for name, (_, log) in built.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            low = line.lower()
+            if any(k in low for k in ("registers", "spill", "serializ", "error")):
                 say(f"[build] {name}: {line.strip()}")
 
 
@@ -503,68 +515,171 @@ def _ssd_inputs(gen, b, l, h, p, n, dtype):
     return x, dt, A, Bm, Cm
 
 
-def _ssd_checks(ctx, gen, flush) -> dict:
-    """ssd_scan against its plain version over the sweep of
-    tests/test_kernels.py, an initial state and the serving shapes of
-    zamba2-2.7b and mamba2-130m, each in f32 (tol 1e-4, the JAX kernel
-    test's) and bf16 (2e-2); bf16 timed at both serving shapes. Returns the
-    kernel table's row, at zamba2's shape."""
+def _ssd_ref_f32(x, dt, A, Bm, Cm, chunk, s0=None):
+    """The plain version of the SSD scan computed in f32 from the same (bf16)
+    inputs, y left in f32: what the tensor-core route is held to in relative
+    norm (`TC_REL_LIMIT`)."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    return ssd_chunked(x.float(), dt, A, Bm.float()[:, :, None], Cm.float()[:, :, None],
+                       min(chunk, x.shape[1]), s0)
+
+
+def _ssd_controls(x, dt, A, Bm, Cm, chunk, y32) -> dict:
+    """What the relative-norm limit must catch, from the plain version alone:
+    y with the diagonal of the decayed scores dropped (the causal mask one
+    column off, j < i), and y whose middle chunk starts from a zero state
+    (that chunk's S_in not carried). Returns each one's relative distance
+    from the true y32."""
+    diag = (Bm.float() * Cm.float()).sum(-1)[:, :, None, None] * dt[..., None] * x.float()
+    c0 = (x.shape[1] // chunk // 2) * chunk  # the middle chunk's first row
+    cut = slice(c0, c0 + chunk)
+    y_cut, _ = _ssd_ref_f32(x[:, cut], dt[:, cut], A, Bm[:, cut], Cm[:, cut], chunk)
+    dropped = y32.clone()
+    dropped[:, cut] = y_cut
+    return dict(diagonal=_rel_err(y32 - diag, y32), s_in=_rel_err(dropped, y32))
+
+
+def _ssd_kernel_ms(ssd_args, kernel) -> dict:
+    """Device time alone of each kernel the route launches, mean over 10
+    calls under torch.profiler, by kernel name (ssd_state_pass,
+    ssd_chunk_out, ssd_scan_kernel)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.ssd_scan.ops import ssd
+
+    x, dt, A, Bm, Cm = ssd_args
+    ssd(x, dt, A, Bm, Cm, kernel=kernel)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ssd(x, dt, A, Bm, Cm, kernel=kernel)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in ("ssd_state_pass", "ssd_chunk_out", "ssd_scan_kernel"):
+            if name in e.key and e.self_device_time_total > 0:
+                out[name] = e.self_device_time_total / e.count / 1e3
+    return out
+
+
+def _ssd_checks(ctx, gen, flush) -> dict:
+    """ssd_scan against its plain version over the sweep of
+    tests/test_kernels.py, every shape class of the tensor-core route
+    (Q in {64, 128} x P in {32, 64} x N in {32, 64, 128} at a ragged L,
+    L < Q, an initial state, a head count that leaves a partial head group)
+    and the serving shapes of zamba2-2.7b and mamba2-130m at B = 2 and at the
+    ssm phase's B = 4, each in f32 (tol 1e-4, the JAX kernel test's; the
+    scalar kernel) and bf16 (2e-2; on the tensor-core route also within
+    `TC_REL_LIMIT` in relative norm of the plain version in f32, y and the
+    final state). At the serving shapes two faults the limit must catch are
+    read off the plain version, and bf16 is timed on both routes. Returns
+    the kernel table's row, at the ssm phase's zamba2 shape (B = 4)."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import SCALAR, TC_REL_LIMIT, TENSOR_CORE, route, ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     dev = torch.device("cuda")
-    serving = {"zamba2-2.7b": (2, 2048, 80, 64, 64, 128), "mamba2-130m": (2, 2048, 24, 64, 128, 128)}
-    cases = [(2, 256, 4, 64, 32, 64), (1, 100, 2, 32, 16, 32), (2, 128, 8, 16, 64, 128),
-             (2, 300, 4, 64, 128, 128), *serving.values()]
-    sweep_err, errs, timed = 0.0, {}, {}
+    serving = {("zamba2-2.7b", 2): (2, 2048, 80, 64, 64, 128),
+               ("mamba2-130m", 2): (2, 2048, 24, 64, 128, 128),
+               ("zamba2-2.7b", 4): (4, 2048, 80, 64, 64, 128),
+               ("mamba2-130m", 4): (4, 2048, 24, 64, 128, 128)}
+    # (b, l, h, p, n, chunk, initial state)
+    sweep = [(2, 256, 4, 64, 32, 64, False), (1, 100, 2, 32, 16, 32, False),
+             (2, 128, 8, 16, 64, 128, False), (2, 300, 4, 64, 128, 128, True)]
+    shapes = itertools.product((64, 128), (32, 64), (32, 64, 128))  # Q x P x N
+    tc_cases = [(2 if n == 64 else 1, 300, 3, p, n, q, i % 2 == 0)
+                for i, (q, p, n) in enumerate(shapes)]
+    tc_cases += [(2, 50, 4, 32, 32, 64, True), (1, 100, 3, 64, 128, 128, False),  # L < Q
+                 (4, 2048, 20, 64, 64, 128, True),  # 3 head groups of 8, the last of 4
+                 (2, 2048, 24, 32, 128, 64, False)]  # groups of 8 heads at Q = 64
+    cases = sweep + tc_cases + [(*v, False) for v in serving.values()]
+    sweep_err, sweep_rel, routes, errs, rels, timed, controls = 0.0, 0.0, {}, {}, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (b, l, h, p, n, chunk) in enumerate(cases):
+        for b, l, h, p, n, chunk, with_s0 in cases:
+            shape = (b, l, h, p, n, chunk)
             x, dt, A, Bm, Cm = _ssd_inputs(gen, b, l, h, p, n, dtype)
-            s0 = _randn(gen, (b, h, p, n), torch.float32) if l == 300 else None  # initial state
+            s0 = _randn(gen, (b, h, p, n), torch.float32) if with_s0 else None
+            kernel = route(dtype, p, n, chunk)
+            routes[kernel] = routes.get(kernel, 0) + 1
             y, fs = ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
             yr, fsr = ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None], min(chunk, l), s0)
             err = max(_max_err(y, yr), _max_err(fs, fsr))
             t = tol[dtype]
             check(bool(torch.allclose(y.float(), yr.float(), rtol=t, atol=t)
                        and torch.allclose(fs, fsr, rtol=t, atol=t)),
-                  f"ssd_scan {dtype} {(b, l, h, p, n, chunk)}: max err {err}")
-            name = next((k for k, v in serving.items() if v == cases[i]), None)
+                  f"ssd_scan {dtype} {shape} ({kernel}): max err {err}")
+            rel = None
+            if kernel == TENSOR_CORE:
+                y32, fs32 = _ssd_ref_f32(x, dt, A, Bm, Cm, chunk, s0)
+                rel = max(_rel_err(y, y32), _rel_err(fs, fs32))
+                check(rel <= TC_REL_LIMIT, f"ssd_scan bf16 {shape} ({kernel}): relative error "
+                      f"{rel:.3e} beyond {TC_REL_LIMIT}")
+            if dtype == torch.bfloat16:
+                say(f"[kernels] ssd_scan bf16 B={b} L={l} H={h} P={p} N={n} Q={chunk}"
+                    f"{' init_state' if with_s0 else ''}: route {kernel}, max abs err {err:.3e}"
+                    + (f", relative error {rel:.3e}" if rel is not None else ""))
+            name = next((k for k, v in serving.items() if v == shape), None)
             if name is None:
                 sweep_err = max(sweep_err, err)
+                sweep_rel = max(sweep_rel, rel or 0.0)
                 continue
             errs[(name, dtype)] = err
-            if dtype == torch.bfloat16:
-                timed[name] = dict(
-                    ms=_time_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=chunk), iters=20, flush=flush),
-                    device_ms=_time_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=chunk), iters=20,
-                                       flush=flush, device_only=True),
-                    plain_ms=_time_ms(lambda: ssd_chunked(x, dt, A, Bm[:, :, None],
-                                                          Cm[:, :, None], chunk),
-                                      iters=5, flush=flush),
-                    **_bound(*_ssd_work(b, l, h, p, n, chunk, 2), "torch.bfloat16"),
-                )
-    say(f"[kernels] ssd_scan sweep ok (f32 tol 1e-4, bf16 tol 2e-2, initial state); max abs "
-        f"err {sweep_err:.3e}")
-    for name, (b, l, h, p, n, chunk) in serving.items():
-        r = timed[name]
-        say(f"[kernels] ssd_scan at {name} B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16: kernel "
-            f"{r['ms']:.4f} ms per call (device alone {r['device_ms']:.4f} ms), plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), max abs err bf16 {errs[(name, torch.bfloat16)]:.3e} (tol 2e-2), "
-            f"f32 {errs[(name, torch.float32)]:.3e} (tol 1e-4), {b * h} blocks on "
-            f"{torch.cuda.get_device_properties(dev).multi_processor_count} SMs [{ctx['card']}]")
-    z = timed["zamba2-2.7b"]
+            if dtype == torch.float32:
+                continue
+            rels[name] = rel
+            controls[name] = _ssd_controls(x, dt, A, Bm, Cm, chunk, y32)
+            check(min(controls[name].values()) > 2 * TC_REL_LIMIT,
+                  f"ssd_scan {name}: a fault the limit must catch reads {controls[name]}, not "
+                  f"clearly beyond {TC_REL_LIMIT}")
+            args = (x, dt, A, Bm, Cm)
+            timed[name] = dict(
+                ms=_time_ms(lambda: ssd(*args), iters=20, flush=flush),
+                device_ms=_time_ms(lambda: ssd(*args), iters=20, flush=flush, device_only=True),
+                scalar_ms=_time_ms(lambda: ssd(*args, kernel=SCALAR), iters=10, flush=flush),
+                scalar_device_ms=_time_ms(lambda: ssd(*args, kernel=SCALAR), iters=10,
+                                          flush=flush, device_only=True),
+                plain_ms=_time_ms(lambda: ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None],
+                                                      chunk), iters=5, flush=flush),
+                kernels={**_ssd_kernel_ms(args, TENSOR_CORE), **_ssd_kernel_ms(args, SCALAR)},
+                **_bound(*_ssd_work(b, l, h, p, n, chunk, 2), "torch.bfloat16"),
+            )
+    say(f"[kernels] ssd_scan sweep ok (f32 tol 1e-4, bf16 tol 2e-2 and, on the tensor-core "
+        f"route, relative error within {TC_REL_LIMIT}; initial state, ragged L, L < Q, partial "
+        f"head group); calls by route {routes}; max abs err {sweep_err:.3e}, max relative error "
+        f"{sweep_rel:.3e}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (arch, bb), (b, l, h, p, n, chunk) in serving.items():
+        r, k, c = timed[(arch, bb)], timed[(arch, bb)]["kernels"], controls[(arch, bb)]
+        say(f"[kernels] ssd_scan at {arch} B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16: "
+            f"tensor-core route {r['ms']:.4f} ms per call (device alone {r['device_ms']:.4f} ms: "
+            f"ssd_state_pass {k['ssd_state_pass']:.4f} + ssd_chunk_out {k['ssd_chunk_out']:.4f} "
+            f"ms profiled), scalar kernel {r['scalar_ms']:.4f} ms (device alone "
+            f"{r['scalar_device_ms']:.4f} ms; profiled {k['ssd_scan_kernel']:.4f} ms), "
+            f"{r['scalar_device_ms'] / r['device_ms']:.1f}x; plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); max abs err bf16 "
+            f"{errs[((arch, bb), torch.bfloat16)]:.3e} (tol 2e-2), relative error "
+            f"{rels[(arch, bb)]:.3e} (limit {TC_REL_LIMIT}; diagonal dropped: "
+            f"{c['diagonal']:.3e}, middle chunk's S_in not carried: {c['s_in']:.3e}), f32 "
+            f"{errs[((arch, bb), torch.float32)]:.3e} (tol 1e-4); {b * h} scalar blocks on {sms} "
+            f"SMs [{ctx['card']}]")
+    ctx["ssd_device_ms"] = {arch: timed[(arch, 4)]["device_ms"] for arch, _ in serving}
+    z = timed[("zamba2-2.7b", 4)]
     return dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:85",
-        max_abs_err=errs[("zamba2-2.7b", torch.bfloat16)], tol=tol[torch.bfloat16],
-        max_abs_err_f32=errs[("zamba2-2.7b", torch.float32)],
+        max_abs_err=errs[(("zamba2-2.7b", 4), torch.bfloat16)], tol=tol[torch.bfloat16],
+        max_abs_err_f32=errs[(("zamba2-2.7b", 4), torch.float32)],
+        rel_err=rels[("zamba2-2.7b", 4)],
         ms=z["ms"], device_ms=z["device_ms"], plain_ms=z["plain_ms"],
+        scalar_ms=z["scalar_ms"], scalar_device_ms=z["scalar_device_ms"],
         library_ms=None,  # no one PyTorch call scans SSD
-        bound_ms=z["bound_ms"], bound_by=z["bound_by"], shape="zamba2-2.7b B=2 L=2048 bf16",
+        bound_ms=z["bound_ms"], bound_by=z["bound_by"], shape="zamba2-2.7b B=4 L=2048 bf16",
     )
 
 
@@ -819,7 +934,7 @@ def phase_ssm(ctx) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.prefill_attention.ops import prefill_attention
-    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ops import SCALAR, TENSOR_CORE, ssd
     from repro_torch.models import build_model
     from repro_torch.models.transformer import handoff
 
@@ -851,6 +966,7 @@ def phase_ssm(ctx) -> None:
         torch.cuda.reset_peak_memory_stats()
         for k in kernels.values():
             k.launches = 0
+        ssd.route_launches = dict.fromkeys(ssd.route_launches, 0)
         t0 = time.perf_counter()
         logits, kv = model.prefill(params, dict(inputs=inputs), valid_len=valid)
         torch.cuda.synchronize()
@@ -869,6 +985,7 @@ def phase_ssm(ctx) -> None:
             out.append(tok)
             pos = pos + 1
         launched = {name: k.launches for name, k in kernels.items()}  # prefill and decode
+        by_route = dict(ssd.route_launches)
         finite.append(torch.isfinite(cache["state"]).all())
         peak = torch.cuda.max_memory_allocated() / 2**30
         out = torch.stack(out, 1)
@@ -881,12 +998,20 @@ def phase_ssm(ctx) -> None:
         for name, n in want.items():
             check(launched[name] == n, f"[ssm] {arch}: {name} launched {launched[name]} times, "
                   f"expected {n}")
+        check(by_route == {TENSOR_CORE: cfg.num_layers, SCALAR: 0},
+              f"[ssm] {arch}: ssd_scan calls by route {by_route}, expected all "
+              f"{cfg.num_layers} on {TENSOR_CORE}")
+        ssd_ms = cfg.num_layers * ctx["ssd_device_ms"][arch]
         say(f"[ssm] {arch}: prefill of {len(SSM_PROMPTS)} prompts {list(SSM_PROMPTS)} "
             f"(right-padded to {max(SSM_PROMPTS)}) {1e3 * prefill_s:.2f} ms; handoff into "
             f"init_cache({len(SSM_PROMPTS)}, {SSM_MAX_LEN}); {SSM_STEPS} greedy decode steps mean "
             f"{1e3 * sum(step_s) / len(step_s):.2f} ms (first {1e3 * step_s[0]:.2f} ms); launches "
-            f"{launched}; peak memory {peak:.2f} GiB; all logits and states finite; request 3's "
-            f"first tokens {out[3, :8].tolist()} [{card}]")
+            f"{launched}, ssd_scan by route {by_route}; peak memory {peak:.2f} GiB; all logits "
+            f"and states finite; request 3's first tokens {out[3, :8].tolist()} [{card}]")
+        say(f"[ssm] {arch}: {cfg.num_layers} ssd_scan calls x {ctx['ssd_device_ms'][arch]:.4f} ms "
+            f"(device alone at B={len(SSM_PROMPTS)} L={max(SSM_PROMPTS)}, kernels phase) = "
+            f"{ssd_ms:.2f} ms of the {1e3 * prefill_s:.2f} ms prefill "
+            f"({100 * ssd_ms / (1e3 * prefill_s):.1f}%) [{card}]")
         if arch == "zamba2-2.7b":
             ctx["launches"]["ssd_scan"] = launched["ssd_scan"]  # counts zeroed just before
         del params, cache, logits

@@ -1,6 +1,7 @@
-// Hopper building blocks shared by the attention kernels: 16-byte cp.async
-// with zero fill, the async-proxy fence, and warpgroup matrix multiply
-// (wgmma) on bf16 operands with f32 accumulators in registers.
+// Hopper building blocks shared by the attention and SSD scan kernels:
+// 16- and 4-byte cp.async with zero fill, the async-proxy fence, ldmatrix,
+// and warpgroup matrix multiply (wgmma) on bf16 operands with f32
+// accumulators in registers.
 //
 // Shared-memory operand layout. wgmma reads its shared operands through a
 // 64-bit descriptor. The kernels use the layout without swizzle, whose unit
@@ -57,6 +58,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// 4-byte copy (one f32) from device to shared memory in the background;
+// with valid = false nothing is read and the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed on the way: lane
+// l gives the address of row l % 8 of matrix l / 8 (16 contiguous bytes),
+// and receives in r[j] the elements (2 (l%4), l/4) and (2 (l%4) + 1, l/4)
+// of stored matrix j, the first in the low half. With matrix j = rows
+// 8 (j/2) .. + 7, columns 8 (j%2) .. + 7 of a stored K x M tile, that is
+// the register A operand (sm90.cuh's fragment layout) of its transpose.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
 // Makes this thread's completed writes to shared memory visible to the
 // async proxy, through which wgmma reads its shared operands.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -91,6 +112,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) fence_regs(r[i]);
+}
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
@@ -113,6 +139,20 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // (warps 4g .. 4g + 3) together, after wgmma_fence(); scale_d = 0 ignores
 // the accumulator's input. The shared operand B of wgmma_rs is MN-major
 // (transpose bit set); both operands of wgmma_ss are K-major.
+
+// D (64 x 32, f32) += A (64 x 16, bf16, smem) . B (16 x 32, bf16, smem)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 // D (64 x 64, f32) += A (64 x 16, bf16, smem) . B (16 x 64, bf16, smem)
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,

@@ -11,12 +11,16 @@ import torch.nn.functional as F
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """x: (..., T). Returns (..., T, T) with [i,j] = sum_{k=j+1..i} x_k for
     j<=i, -inf above the diagonal."""
-    t = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
-    seg = cs[..., :, None] - cs[..., None, :]
-    ii = torch.arange(t, device=x.device)
+    return _segsum_from_cumsum(torch.cumsum(x, dim=-1))
+
+
+def _segsum_from_cumsum(cs: torch.Tensor) -> torch.Tensor:
+    """cs: (..., T) an inclusive cumsum. Returns (..., T, T) with [i, j] =
+    cs_i - cs_j for j <= i and -inf above the diagonal."""
+    t = cs.shape[-1]
+    ii = torch.arange(t, device=cs.device)
     tril = ii[:, None] >= ii[None, :]
-    return seg.masked_fill(~tril, float("-inf"))
+    return (cs[..., :, None] - cs[..., None, :]).masked_fill(~tril, float("-inf"))
 
 
 def ssd_chunked(
@@ -73,3 +77,53 @@ def ssd_chunked(
 
     y = (y_diag + y_off).reshape(b, nc * chunk, h, p)[:, :l]
     return y.to(x.dtype), s
+
+
+def ssd_tensor_core_emulation(
+    x: torch.Tensor,  # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H) f32
+    A: torch.Tensor,  # (H,) f32
+    B: torch.Tensor,  # (B, L, N), ngroups = 1
+    C: torch.Tensor,  # (B, L, N)
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core route of the kernel (``ssd_state_pass`` then
+    ``ssd_chunk_out``) written out in f32 with its rounding points: x, B
+    and C as given (bf16 on that route), the scaled x of the state
+    increment x dt exp(cums_last - cums) rounded to bf16, the carried state
+    never rounded, the state at each chunk start (``S_in``) rounded to bf16
+    as the operand of C S_in^T, and the decayed scores
+    P = (C B^T) exp(cums_i - cums_j) dt_j rounded to bf16 before P x.
+    Returns (y in x's dtype, final_state f32), as `ssd_chunked`."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    nc = -(-l // chunk)
+    pad = nc * chunk - l
+    f32, bf16 = torch.float32, torch.bfloat16
+    xc = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).reshape(b, nc, chunk, h, p)
+    dtc = F.pad(dt.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, h)
+    Bc = F.pad(B.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    Cc = F.pad(C.float(), (0, 0, 0, pad)).reshape(b, nc, chunk, n)
+    cums = torch.cumsum(dtc * A.float(), dim=2)  # (b, nc, q, h); pad rows keep the last
+    last = cums[:, :, -1]  # (b, nc, h)
+
+    # ssd_state_pass
+    w = dtc * torch.exp(last[:, :, None] - cums)
+    xs = (xc * w[..., None]).to(bf16).to(f32)
+    inc = torch.einsum("bcthp,bctn->bchpn", xs, Bc)
+    s = init_state.to(f32) if init_state is not None else x.new_zeros((b, h, p, n), dtype=f32)
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = s * torch.exp(last[:, c])[..., None, None] + inc[:, c]
+    s_in = torch.stack(s_in, dim=1).to(bf16).to(f32)  # (b, nc, h, p, n)
+
+    # ssd_chunk_out
+    g = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    ch = cums.permute(0, 1, 3, 2)  # (b, nc, h, q)
+    decay = torch.exp(_segsum_from_cumsum(ch))  # 0 above the diagonal
+    pm = (g[:, :, None] * decay * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]).to(bf16).to(f32)
+    y = torch.einsum("bchij,bcjhp->bcihp", pm, xc)
+    y = y + torch.exp(cums)[..., None] * torch.einsum("bcin,bchpn->bcihp", Cc, s_in)
+    return y.reshape(b, nc * chunk, h, p)[:, :l].to(x.dtype), s

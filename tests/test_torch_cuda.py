@@ -109,6 +109,38 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     assert ssd.launches == n0 + 1 and y.shape == x.shape and fs.shape == (1, 2, 16, 16)
 
 
+def test_ssd_routes_and_their_argument_checks(cuda):
+    """bf16 at a route shape takes the tensor-core route, other shapes and
+    f32 the scalar kernel; forcing the tensor-core route where it does not
+    apply raises, and each call counts once, under its route."""
+    from repro_torch.kernels.ssd_scan.ops import SCALAR, TENSOR_CORE
+
+    def args(dtype, p=64, n=64, b=1, l=100, h=2):
+        return [torch.randn(b, l, h, p, device=cuda).to(dtype),
+                torch.full((b, l, h), 0.01, device=cuda), -torch.ones(h, device=cuda),
+                torch.randn(b, l, n, device=cuda).to(dtype),
+                torch.randn(b, l, n, device=cuda).to(dtype)]
+
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match="tensor_core route does not take"):
+        ssd(*args(torch.float32), kernel=TENSOR_CORE)
+    with pytest.raises(ValueError, match="tensor_core route does not take"):
+        ssd(*args(bf16), chunk=32, kernel=TENSOR_CORE)
+    with pytest.raises(ValueError, match="tensor_core route does not take"):
+        ssd(*args(bf16, p=16), kernel=TENSOR_CORE)
+    before = dict(ssd.route_launches)
+    n0 = ssd.launches
+    y, fs = ssd(*args(bf16), chunk=64)  # L = 100: a whole chunk and a ragged one
+    ssd(*args(bf16, n=16))
+    ssd(*args(bf16), kernel=SCALAR)
+    torch.cuda.synchronize()
+    assert y.shape == (1, 100, 2, 64) and fs.shape == (1, 2, 64, 64)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(fs).all())
+    assert ssd.launches == n0 + 3
+    assert ssd.route_launches[TENSOR_CORE] == before[TENSOR_CORE] + 1
+    assert ssd.route_launches[SCALAR] == before[SCALAR] + 2
+
+
 @pytest.mark.parametrize("page_size", [None, 8])
 def test_small_serve_goes_through_the_kernels(cuda, page_size, rng):
     """A tiny f32 model served on the card: tokens equal reference_generate's

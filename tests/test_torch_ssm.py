@@ -7,8 +7,11 @@ interpret mode, all in f32 at 1e-4 (the JAX kernel test's tolerance). The
 Mamba2 layers (``gated_rms_norm``, ``causal_conv``, ``ssm_forward``,
 ``ssm_decode_step``) are held against their JAX twins at
 ``mamba2-130m-smoke`` f32 within 2e-4, with the JAX initializer's weights.
-The CUDA kernel itself is held against the plain version on the card by
-chip_smoke.py.
+The tensor-core route's rounding points, written out in
+``ref.ssd_tensor_core_emulation``, are held against JAX ``ssd_chunked`` in
+f32 within the route's relative-norm limit, and ``ops.route`` sends the
+serving shapes to that route. The CUDA kernels themselves are held against
+the plain version on the card by chip_smoke.py.
 """
 import pytest
 
@@ -23,7 +26,14 @@ from repro.kernels.ssd_scan.ops import ssd as jax_ssd  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import ssm as js  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import (  # noqa: E402
+    SCALAR,
+    TC_REL_LIMIT,
+    TENSOR_CORE,
+    route,
+    ssd,
+)
+from repro_torch.kernels.ssd_scan.ref import ssd_tensor_core_emulation  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import ssm as ts  # noqa: E402
 from repro_torch.models.convert import _tensor  # noqa: E402
@@ -115,6 +125,47 @@ def test_ssd_rejects_a_missing_sequence():
     with pytest.raises(ValueError, match="L >= 1"):
         ssd(torch.zeros(1, 0, 2, 16), torch.zeros(1, 0, 2), torch.ones(2), torch.zeros(1, 0, 16),
             torch.zeros(1, 0, 16))
+
+
+def _rel(out, ref):
+    return float(np.linalg.norm(_np(out) - np.asarray(ref)) / np.linalg.norm(np.asarray(ref)))
+
+
+@pytest.mark.parametrize("case", [
+    (2, 300, 3, 64, 64, 128),  # zamba2's P, N, Q; ragged last chunk
+    (2, 300, 4, 64, 128, 128),  # mamba2's
+    (1, 150, 2, 32, 32, 64),  # the route's smallest P, N and Q
+])
+def test_tensor_core_emulation_within_the_limit_of_jax(case, rng):
+    """The tensor-core route's rounding points (bf16 inputs, scaled x, S_in
+    and decayed scores rounded to bf16; y out in bf16) keep y and the final
+    state within TC_REL_LIMIT of the JAX chunked scan in f32 on the same
+    inputs, at a ragged L with an initial state."""
+    b, l, h, p, n, chunk = case
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, b, l, h, p, n)
+    x, Bm, Cm = (_np(torch.from_numpy(a).bfloat16()) for a in (x, Bm, Cm))  # bf16 values
+    s0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    yr, fsr = js.ssd_chunked(jnp.asarray(x), jnp.asarray(dt), jnp.asarray(A),
+                             jnp.asarray(Bm[:, :, None]), jnp.asarray(Cm[:, :, None]), chunk,
+                             jnp.asarray(s0))
+    xt, dtt, At, Bt, Ct = _t(x, dt, A, Bm, Cm)
+    y, fs = ssd_tensor_core_emulation(xt.bfloat16(), dtt, At, Bt.bfloat16(), Ct.bfloat16(), chunk,
+                                      torch.from_numpy(s0))
+    assert y.dtype == torch.bfloat16 and fs.dtype == torch.float32
+    assert _rel(y, yr) <= TC_REL_LIMIT and _rel(fs, fsr) <= TC_REL_LIMIT
+    assert _rel(y, yr) > 1e-4  # the roundings are there: the f32 scan itself agrees to ~1e-7
+
+
+@pytest.mark.parametrize("arch,dtype,chunk,want", [
+    ("zamba2-2.7b", torch.bfloat16, None, TENSOR_CORE),
+    ("mamba2-130m", torch.bfloat16, None, TENSOR_CORE),
+    ("zamba2-2.7b", torch.float32, None, SCALAR),  # f32 is held to 1e-4: scalar FMAs
+    ("mamba2-130m", torch.bfloat16, 32, SCALAR),  # Q = 32 is not a route shape
+])
+def test_route_of_the_serving_shapes(arch, dtype, chunk, want):
+    cfg = get_config(arch)
+    q = cfg.ssm_chunk if chunk is None else chunk
+    assert route(dtype, cfg.ssm_head_dim, cfg.ssm_state_dim, q) == want
 
 
 # ---------------------------------------------------------------- Mamba2 block
