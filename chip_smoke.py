@@ -37,8 +37,28 @@ Phases, each printed on its own lines:
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
            policies, slot then paged KV; both attention kernels must launch
+  fleet    the session stack above the engine, llama3-8b at full width and
+           depth in bf16 (random weights from a seed, one copy shared by
+           every server, real clocks): 16 requests of 64-1536 tokens (half
+           opening with one 512-token head), 32 output tokens each, 50 ms
+           apart, replayed by 4 clients through the async frontend, a
+           prefix-affinity router over 2 paged replicas, a 1P:1D disagg
+           fleet and a fleet controller (2 replicas, replica 0 killed 1 s
+           in, queue-threshold autoscaling up to 3 through a server
+           factory). Each: every request done with 32 tokens, the client's
+           streams equal to the outputs, first token at the TTFT stamp, both
+           attention kernels launched, every logit row finite; the router
+           assigns both replicas and hits the shared prefix, the disagg
+           fleet completes 16 handoffs with decode never before transfer
+           ready, the controller records the kill and its recovery plan and
+           restores requests on the survivors. TTFT and TPOT per request,
+           walls and peak memory (before and after the kill) are printed
   parity   float32 at full width: llama3-8b cut to 4 layers, engine tokens
-           under two policy pairs, slot and paged, equal reference_generate's;
+           under two policy pairs, slot and paged, equal reference_generate's,
+           and so do those of the async frontend, a 2-replica router, a
+           1P:1D and a 2P:1D disagg fleet and a fleet controller that kills
+           a replica mid-run (on ManualClocks, so the kill catches the same
+           requests on every card; they re-prefill on the survivor);
            mamba2-130m (full depth) and zamba2-2.7b (cut to 12 layers),
            Model.prefill's last logits equal token-by-token Model.decode's
            (tol 2e-4) and the 8 greedy tokens after both paths are equal
@@ -713,11 +733,11 @@ def _requests(prompts, max_out, gap, ttft, tpot):
 
 
 class _Probe:
-    """Times the engine's prefill chunks and decode steps (both end in a
-    device sync) and records, without syncing, whether every logit row the
-    engine produced was finite."""
+    """Times the prefill chunks and decode steps of every server it watches
+    (both end in a device sync) and records, without syncing, whether every
+    logit row the engine produced was finite."""
 
-    def __init__(self, server):
+    def __init__(self, *servers):
         import torch
 
         from repro_torch.serving import engine
@@ -735,9 +755,14 @@ class _Probe:
             return logits, cache
 
         engine.sample, engine.chunk_prefill_step = sample, chunk
+        for server in servers:
+            self.watch(server)
+
+    def watch(self, server):
         for obj, name, sink in ((server.prefill, "run_chunk", self.chunk_s),
                                 (server.decode, "step", self.step_s)):
             setattr(obj, name, self._timed(getattr(obj, name), sink))
+        return server
 
     @staticmethod
     def _timed(fn, sink):
@@ -827,6 +852,259 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+# ---------------------------------------------------------------------- fleet
+FLEET_KILL_AT = 1.0  # seconds into the FleetSession run: replica 0 dies
+
+
+class _StreamLog:
+    """Wraps a session's ``submit`` so that every handle's stream is logged
+    as its client reads it: the tokens, and the server clock's reading at
+    the first one."""
+
+    def __init__(self, submit, now):
+        self._submit, self._now = submit, now
+        self.tokens, self.first_seen = {}, {}
+
+    async def submit(self, request, prompt, at=None):
+        return _LoggedHandle(await self._submit(request, prompt, at=at), self)
+
+    def record(self, rid, tok) -> None:
+        if rid not in self.tokens:
+            self.first_seen[rid] = self._now()
+        self.tokens.setdefault(rid, []).append(tok)
+
+
+class _LoggedHandle:
+    def __init__(self, handle, log: _StreamLog):
+        self._handle, self._log, self.rid = handle, log, handle.rid
+
+    async def stream(self):
+        async for tok in self._handle.stream():
+            self._log.record(self.rid, tok)
+            yield tok
+
+
+def _attention_launches(zero: bool = False) -> dict:
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+
+    if zero:
+        prefill_attention.launches = decode_attention.launches = 0
+    return {"prefill_attention": prefill_attention.launches,
+            "decode_attention": decode_attention.launches}
+
+
+def _fleet_run(ctx, label, build, pairs, check_more) -> None:
+    """One sub-phase of the fleet phase: ``build(probe, clock_now)`` makes
+    the session and its servers (the probe watching each), the 16 requests
+    replay through ``drive_replay`` with 4 clients, every stream logged as
+    the client reads it. Checks every request done with its 32 tokens, the
+    client's streams equal to the engine's outputs, token times in order
+    and the first at the request's TTFT stamp, both attention kernels
+    launched (counted from zero), every logit row finite; then
+    ``check_more(session, trace)``. Prints walls, per-request TTFT/TPOT and
+    peak memory beside the card."""
+    import asyncio
+
+    import torch
+
+    from repro_torch.obs import EventType, TraceRecorder
+    from repro_torch.serving.frontend import drive_replay
+    from repro_torch.serving.router import RouterSession
+
+    card = ctx["card"]
+    trace = TraceRecorder()
+    probe = _Probe()
+    session, now = build(probe, trace)
+    log = _StreamLog(session.submit, now)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _attention_launches(zero=True)
+
+    async def run():
+        async with session:
+            await drive_replay(log.submit, pairs, clients=4)
+
+    t0 = time.perf_counter()
+    asyncio.run(run())
+    wall = time.perf_counter() - t0
+    launches = _attention_launches()
+    finite = probe.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    outs = session.outputs if isinstance(session, RouterSession) else session.session.outputs
+    first_tok = {}
+    for e in trace.events:
+        if e.type is EventType.TOKEN:
+            first_tok.setdefault(e.rid, e.t)
+    lag = 0.0
+    for r, _ in pairs:
+        got = outs.get(r.rid, [])
+        check(r.phase.value == "done" and len(got) == r.output_len,
+              f"fleet {label}: rid {r.rid} ended {r.phase.value} with {len(got)}/{r.output_len} "
+              "tokens")
+        check(log.tokens.get(r.rid) == got,
+              f"fleet {label}: rid {r.rid} streamed {log.tokens.get(r.rid)} != outputs {got}")
+        check(r.token_times == sorted(r.token_times) and len(r.token_times) == r.output_len,
+              f"fleet {label}: rid {r.rid} token times out of order or short")
+        check(r.first_token_time == r.token_times[0] == first_tok.get(r.rid)
+              and r.ttft() == r.first_token_time - r.arrival,
+              f"fleet {label}: rid {r.rid} first token at {r.token_times[0]}, TTFT stamp "
+              f"{r.first_token_time}, first TOKEN event {first_tok.get(r.rid)}")
+        lag = max(lag, log.first_seen[r.rid] - r.first_token_time)
+        say(f"[fleet] {label} rid={r.rid} prompt={r.input_len} out={len(got)} "
+            f"ttft={r.ttft():.4f}s tpot={r.mean_tpot():.5f}s [{card}]")
+    check(finite, f"fleet {label}: a logit row was not finite")
+    check(all(n > 0 for n in launches.values()),
+          f"fleet {label}: a kernel never launched: {launches}")
+    check_more(session, trace)
+    ttft = sorted(r.ttft() for r, _ in pairs)
+    tpot = sorted(r.mean_tpot() for r, _ in pairs)
+    say(f"[fleet] {label}: {len(pairs)} requests in {wall:.3f} s; TTFT median "
+        f"{ttft[len(ttft) // 2]:.4f} s max {ttft[-1]:.4f} s; TPOT median "
+        f"{tpot[len(tpot) // 2]:.5f} s max {tpot[-1]:.5f} s; prefill chunks "
+        f"{len(probe.chunk_s)}, decode steps {len(probe.step_s)}; launches {launches}; "
+        f"streams equal outputs, first streamed token at most {lag:.4f} s after its stamp; "
+        f"peak memory {peak:.2f} GiB; all logits finite [{card}]")
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_fleet(ctx) -> None:
+    """llama3-8b at full width and depth in bf16, one parameter copy shared
+    by every server, real clocks: the async frontend, a prefix-affinity
+    router over 2 paged replicas, a 1P:1D disagg fleet and a fleet
+    controller with a kill and queue-threshold autoscaling."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.smoke_workload import fleet_requests, smoke_engine_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.clock import MonotonicClock
+    from repro_torch.serving.disagg import DisaggFleetSession
+    from repro_torch.serving.engine import DisaggServer
+    from repro_torch.serving.fleetctl import FleetSession
+    from repro_torch.serving.frontend import AsyncServeSession
+    from repro_torch.serving.router import RouterSession
+
+    dev, card = ctx["device"], ctx["card"]
+    cfg = get_config("llama3-8b")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    say(f"[fleet] {cfg.name} {cfg.dtype}, full width and depth, random weights (seed 0), "
+        f"one copy shared by every server; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated [{card}]")
+
+    def server(probe, page_size=None, clock=None):
+        return probe.watch(DisaggServer(model, params, smoke_engine_config(page_size),
+                                        clock=clock, device=dev))
+
+    def traffic():
+        return fleet_requests(cfg.vocab_size)
+
+    # 1. the async frontend over one server
+    def frontend(probe, trace):
+        srv = server(probe)
+        return AsyncServeSession(srv, trace=trace), srv.peek_now
+
+    _fleet_run(ctx, "frontend", frontend, traffic(), lambda sess, tr: None)
+    _free()
+
+    # 2. prefix-affinity router over 2 paged replicas
+    def router(probe, trace):
+        srvs = [server(probe, page_size=64) for _ in range(2)]
+        return (RouterSession(srvs, policy="prefix-affinity", prefix_block=64, trace=trace),
+                srvs[0].peek_now)
+
+    def router_checks(sess, trace):
+        s = sess.summary()
+        assigned, hits = s["routing"]["assigned"], s["prefix"]["hit_tokens"]
+        check(min(assigned) > 0, f"fleet router: a replica was assigned nothing: {assigned}")
+        check(hits > 0, "fleet router: no prefix hit tokens")
+        say(f"[fleet] router: assigned {assigned}; prefix hit tokens {hits} of "
+            f"{s['prefix']['lookup_tokens']} looked up")
+
+    _fleet_run(ctx, "router", router, traffic(), router_checks)
+    _free()
+
+    # 3. 1 prefill + 1 decode server on one clock, no deflection
+    def disagg(probe, trace):
+        clock = MonotonicClock()
+        p, d = server(probe, clock=clock), server(probe, clock=clock)
+        return DisaggFleetSession([p], [d], deflection="never", trace=trace), p.peek_now
+
+    def disagg_checks(sess, trace):
+        from repro_torch.obs import EventType
+
+        h = sess.core.handoff_summary()
+        check(h["transfers_completed"] == 16 and h["cross_transfers"] == 16,
+              f"fleet disagg: handoffs {h}")
+        check(not sess.core.inflight and not sess.core.pending_handoff and not sess.core.has_work,
+              "fleet disagg: work left in flight or pending")
+        ready = {e.rid: e.data["ready_at"] for e in trace.events
+                 if e.type is EventType.HANDOFF_START}
+        for r in sess.session.requests:
+            check(r.decode_start >= ready[r.rid] >= r.prefill_finish,
+                  f"fleet disagg: rid {r.rid} decode start {r.decode_start} before its "
+                  f"transfer was ready at {ready[r.rid]}")
+        say(f"[fleet] disagg: transfers {h['transfers_completed']} (cross "
+            f"{h['cross_transfers']}), {h['bytes_transferred'] / 2**30:.3f} GiB priced, queue wait "
+            f"max {h['queue_wait_max']:.4f} s; every decode start >= its transfer-ready time")
+
+    _fleet_run(ctx, "disagg", disagg, traffic(), disagg_checks)
+    _free()
+
+    # 4. fleet controller: 2 replicas, replica 0 killed at FLEET_KILL_AT s,
+    # queue-threshold autoscaling between 1 and 3 replicas
+    mem = {}
+
+    def fleet(probe, trace):
+        srvs = [server(probe) for _ in range(2)]
+        sess = FleetSession(srvs, policy="least-queued", autoscaler="queue-threshold",
+                            n_min=1, n_max=3, kill_schedule=[(FLEET_KILL_AT, 0)],
+                            server_factory=lambda: server(probe), trace=trace)
+        kill = sess.kill_replica
+
+        async def kill_replica(index, reason="killed"):
+            mem["before"] = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+            record = await kill(index, reason)
+            torch.cuda.synchronize()
+            mem["after"] = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+            return record
+
+        sess.kill_replica = kill_replica
+        return sess, srvs[1].peek_now  # replica 1 survives the kill
+
+    def fleet_checks(sess, trace):
+        f = sess.summary()["fleet"]
+        check(f["kills"] == 1 and len(f["recoveries"]) == 1,
+              f"fleet controller: kill not recorded: kills {f['kills']}, skipped "
+              f"{f['kills_skipped']}")
+        rec = f["recoveries"][0]
+        check(rec["replica"] == 0 and rec["steps"], f"fleet controller: recovery {rec}")
+        check(f["restored"] >= 1, "fleet controller: the kill restored no request")
+        gib = {k: tuple(x / 2**30 for x in v) for k, v in mem.items()}
+        say(f"[fleet] controller: replica 0 killed at t={rec['t']:.3f} s, restored "
+            f"{len(rec['restored'])} on survivors (rids {rec['restored']}), rescheduled "
+            f"{len(rec['rescheduled'])}; recovery plan "
+            f"{[s[0] for s in rec['steps']]}; scale-ups {f['scale_ups']}, scale-downs "
+            f"{f['scale_downs']}, decisions {[(d['action'], d['applied']) for d in f['decisions']]}; "
+            f"memory allocated/peak before the kill {gib['before'][0]:.2f}/"
+            f"{gib['before'][1]:.2f} GiB, after {gib['after'][0]:.2f}/{gib['after'][1]:.2f} GiB "
+            f"[{card}]")
+
+    _fleet_run(ctx, "controller", fleet, traffic(), fleet_checks)
+    del params
+    _free()
+
+
 # --------------------------------------------------------------------- parity
 def phase_parity(ctx) -> None:
     import numpy as np
@@ -856,11 +1134,78 @@ def phase_parity(ctx) -> None:
         for i, ref in enumerate(refs):
             check(outs[i] == ref, f"parity {label}: rid {i} tokens {outs[i]} != reference {ref}")
         say(f"[parity] {label}: tokens of {len(prompts)} requests equal reference_generate's")
+    _session_parity(ctx, model, params, prompts, refs, max_len, n_new)
     say(f"[parity] llama3-8b f32, full width, depth cut 32 -> 4 layers [{ctx['card']}]")
     del params
     torch.cuda.empty_cache()
     _ssm_parity(ctx, "mamba2-130m", None)
     _ssm_parity(ctx, "zamba2-2.7b", 12)
+
+
+# the virtual time at which the parity phase's fleet loses replica 0: both
+# replicas are then mid-run (some requests decoding, some prefilling)
+PARITY_KILL_AT = 0.03
+
+
+def _session_parity(ctx, model, params, prompts, refs, max_len, n_new) -> None:
+    """The session stack on the card in f32: every request's greedy tokens
+    through the async frontend, a 2-replica router, a 1P:1D and a 2P:1D
+    disagg fleet and a fleet controller that kills a replica mid-run equal
+    reference_generate's. ManualClock(auto_step=1e-3): the schedule, and so
+    which requests the kill catches, does not depend on the card's speed."""
+    import asyncio
+
+    from repro_torch.serving.clock import ManualClock
+    from repro_torch.serving.disagg import DisaggFleetSession
+    from repro_torch.serving.engine import DisaggServer, EngineConfig
+    from repro_torch.serving.fleetctl import FleetSession
+    from repro_torch.serving.frontend import AsyncServeSession
+    from repro_torch.serving.router import RouterSession
+
+    def server(clock=None, page_size=None):
+        ecfg = EngineConfig(max_slots=4, max_len=max_len, chunk_size=128, eos_token=-1,
+                            page_size=page_size)
+        return DisaggServer(model, params, ecfg, device=ctx["device"],
+                            clock=clock if clock is not None else ManualClock(auto_step=1e-3))
+
+    def pools(n_prefill, n_decode):
+        clock = ManualClock(auto_step=1e-3)
+        srvs = [server(clock) for _ in range(n_prefill + n_decode)]
+        return srvs[:n_prefill], srvs[n_prefill:]
+
+    kinds = [
+        ("async frontend", lambda: AsyncServeSession(server())),
+        ("router, 2 paged replicas, prefix-affinity",
+         lambda: RouterSession([server(page_size=64) for _ in range(2)],
+                               policy="prefix-affinity", prefix_block=64)),
+        ("disagg 1P:1D, never", lambda: DisaggFleetSession(*pools(1, 1), deflection="never")),
+        ("disagg 2P:1D, slack-aware",
+         lambda: DisaggFleetSession(*pools(2, 1), deflection="slack-aware")),
+        (f"fleet controller, 2 replicas, replica 0 killed at t={PARITY_KILL_AT}",
+         lambda: FleetSession([server(), server()], policy="round-robin",
+                              autoscale_interval=0.0, kill_schedule=[(PARITY_KILL_AT, 0)])),
+    ]
+    for label, build in kinds:
+        session = build()
+        reqs = _requests(prompts, n_new, 0.01, 60.0, 5.0)
+
+        async def run():
+            async with session:
+                return await session.replay(reqs, clients=2)
+
+        outs = asyncio.run(run())
+        for i, ref in enumerate(refs):
+            check(outs[i] == ref, f"parity {label}: rid {i} tokens {outs[i]} != reference {ref}")
+        extra = ""
+        if isinstance(session, FleetSession):
+            f = session.summary()["fleet"]
+            check(f["kills"] == 1 and f["restored"] >= 1,
+                  f"parity {label}: kills {f['kills']}, restored {f['restored']}")
+            extra = f" (restored {f['restored']} on the survivor and re-prefilled there)"
+        say(f"[parity] {label}: tokens of {len(prompts)} requests equal "
+            f"reference_generate's{extra}")
+        del session
+        _free()
 
 
 SSM_PARITY_TOL = 2e-4  # atol = rtol, as tests/test_models_numerics.py
@@ -1038,8 +1383,8 @@ def main() -> int:
     ctx: dict = {}
     t_start = time.perf_counter()
     try:
-        for phase in (phase_device, phase_build, phase_kernels, phase_serve, phase_parity,
-                      phase_ssm):
+        for phase in (phase_device, phase_build, phase_kernels, phase_serve, phase_fleet,
+                      phase_parity, phase_ssm):
             t0 = time.perf_counter()
             phase(ctx)
             name = phase.__name__.removeprefix("phase_")

@@ -25,7 +25,7 @@ The taxonomy is the request lifecycle every backend shares:
     FAIL            engine crash containment tore the request down
                     (async frontend stepper crash); terminal
 
-Fleet-control events (rid = -1 except RESTORE; `repro.serving.fleetctl`, not yet ported):
+Fleet-control events (rid = -1 except RESTORE; `repro_torch.serving.fleetctl`):
 
     REPLICA_DOWN    a replica died (``data["reason"]``: "killed" |
                     "scale-down"; killed replicas carry recovery stats)

@@ -1,16 +1,24 @@
 """Policy registry: the one seam between scheduling *policy* and serving
-*mechanism* (a copy of ``repro.policies.registry``, prefill and decode
-sides only).
+*mechanism* (a copy of ``repro.policies.registry``).
 
 The paper's claim is that the urgency-prefill / slack-decode policies are
 separable from the serving substrate. Policies register themselves by name,
-and the server constructs them through the factories, keyed by a
-`PolicySpec`:
+and the serving layers construct them through the factories, keyed by a
+`PolicySpec`: the server its prefill and decode schedulers, the router its
+placement policy, the disagg fleet its deflection rule, the fleet
+controller its autoscaler.
 
     spec  = PolicySpec("kairos-slack", {"slo_margin": 0.85})
     psch  = make_prefill("kairos-urgency")
     dsch  = make_decode(spec, lut)
-    names = available_policies()   # {"prefill": (...), "decode": (...)}
+    names = available_policies()   # {"prefill": (...), "decode": (...), ...}
+
+Registering a new policy is one decorator on the implementing class::
+
+    @register_prefill("my-policy")
+    @dataclass
+    class MyPrefillScheduler:
+        def select(self, queue, t_now, mu, budget): ...
 
 A class may be registered under several names with different construction
 defaults (e.g. ``kairos-slack-greedy`` is ``SlackDecodeScheduler`` with
@@ -66,12 +74,66 @@ class DecodePolicy(Protocol):
     def observe(self, batch: Sequence[Request], actual: float) -> None: ...
 
 
+@runtime_checkable
+class RouterPolicy(Protocol):
+    """Multi-server routing: picks which replica a request lands on.
+
+    ``replicas`` is a sequence of replica views (`repro_torch.serving.router.
+    ReplicaState`: in-flight count, pending prefill tokens, throughput
+    estimate, prefix-match probe); the policy returns an index into it.
+    Where a request lands decides whether within-replica urgency scheduling
+    can save its TTFT at all, so this is the fleet-level half of the
+    scheduling story.
+    """
+
+    name: str
+
+    def select(self, replicas: Sequence[Any], request: Request,
+               prompt: Sequence[int]) -> int: ...
+
+
+@runtime_checkable
+class DeflectionPolicy(Protocol):
+    """Prefill-deflection decision: should this request's *prefill* run on a
+    decode-pool server instead of the prefill pool?
+
+    ``fleet`` is a disagg fleet view (`repro_torch.serving.disagg.DisaggSession`):
+    per-worker backlogs, throughput estimates, and free decode slots. Return
+    True to deflect — the request prefills on an underutilized decode server
+    and skips the cross-server KV handoff entirely (Microsoft's load-aware
+    prefill deflection, PAPERS.md).
+    """
+
+    name: str
+
+    def decide(self, fleet: Any, request: Request,
+               prompt: Sequence[int]) -> bool: ...
+
+
+@runtime_checkable
+class AutoscalerPolicy(Protocol):
+    """Elastic-scaling decision: how many replicas should the fleet run?
+
+    ``slo`` is `repro_torch.obs.slo.windowed_slo` output (per-window attainment,
+    queue-depth gauges, decode-time-vs-TPOT-budget series) — deliberately
+    *not* session internals, so the controller reacts to the same telemetry
+    an operator would watch. Return the desired live-replica count; the
+    fleet controller clamps it to ``[n_min, n_max]`` and performs at most
+    one scale step per control interval.
+    """
+
+    name: str
+
+    def decide(self, slo: Mapping[str, Any], n_replicas: int,
+               n_min: int, n_max: int) -> int: ...
+
+
 @dataclass(frozen=True)
 class PolicySpec:
     """Serializable policy reference: registered name + construction kwargs.
 
-    A bare string is accepted anywhere a spec is (it coerces to
-    ``PolicySpec(name)`` with no kwargs).
+    The same spec drives both backends; a bare string is accepted anywhere a
+    spec is (it coerces to ``PolicySpec(name)`` with no kwargs).
     """
 
     name: str
@@ -94,6 +156,9 @@ class _Entry:
 
 _PREFILL: Dict[str, _Entry] = {}
 _DECODE: Dict[str, _Entry] = {}
+_ROUTER: Dict[str, _Entry] = {}
+_DEFLECTION: Dict[str, _Entry] = {}
+_AUTOSCALER: Dict[str, _Entry] = {}
 
 
 def register_prefill(name: str, **defaults):
@@ -121,6 +186,36 @@ def register_decode(name: str, **defaults):
     return deco
 
 
+def register_router(name: str, **defaults):
+    """Class decorator: register a routing policy under ``name``."""
+
+    def deco(cls):
+        _ROUTER[name] = _Entry(cls, defaults)
+        return cls
+
+    return deco
+
+
+def register_deflection(name: str, **defaults):
+    """Class decorator: register a prefill-deflection policy under ``name``."""
+
+    def deco(cls):
+        _DEFLECTION[name] = _Entry(cls, defaults)
+        return cls
+
+    return deco
+
+
+def register_autoscaler(name: str, **defaults):
+    """Class decorator: register an autoscaler policy under ``name``."""
+
+    def deco(cls):
+        _AUTOSCALER[name] = _Entry(cls, defaults)
+        return cls
+
+    return deco
+
+
 def available_prefill_policies() -> Tuple[str, ...]:
     return tuple(sorted(_PREFILL))
 
@@ -129,11 +224,27 @@ def available_decode_policies() -> Tuple[str, ...]:
     return tuple(sorted(_DECODE))
 
 
+def available_router_policies() -> Tuple[str, ...]:
+    return tuple(sorted(_ROUTER))
+
+
+def available_deflection_policies() -> Tuple[str, ...]:
+    return tuple(sorted(_DEFLECTION))
+
+
+def available_autoscaler_policies() -> Tuple[str, ...]:
+    return tuple(sorted(_AUTOSCALER))
+
+
 def available_policies() -> Dict[str, Tuple[str, ...]]:
-    """Every registered policy name, per side."""
+    """Every registered policy name, per side — the CLI help / parity-test
+    enumeration entry point."""
     return {
         "prefill": available_prefill_policies(),
         "decode": available_decode_policies(),
+        "router": available_router_policies(),
+        "deflection": available_deflection_policies(),
+        "autoscaler": available_autoscaler_policies(),
     }
 
 
@@ -147,6 +258,10 @@ def _lookup(table: Dict[str, _Entry], kind: str, name: str) -> _Entry:
         ) from None
 
 
+def _accepted_params(cls: type) -> Dict[str, inspect.Parameter]:
+    return dict(inspect.signature(cls).parameters)
+
+
 def _build(
     table: Dict[str, _Entry],
     kind: str,
@@ -156,7 +271,7 @@ def _build(
 ):
     spec = PolicySpec.coerce(spec)
     entry = _lookup(table, kind, spec.name)
-    params = dict(inspect.signature(entry.cls).parameters)
+    params = _accepted_params(entry.cls)
     bad = [k for k in spec.kwargs if k not in params]
     if bad:
         raise ValueError(
@@ -190,3 +305,22 @@ def make_decode(
     engine's ``slo_margin``) without knowing which policies take them.
     """
     return _build(_DECODE, "decode", spec, (lut,), soft_defaults)
+
+
+def make_router(spec: Union[str, PolicySpec], **soft_defaults: Any) -> RouterPolicy:
+    """Construct a registered routing policy from a spec (or bare name)."""
+    return _build(_ROUTER, "router", spec, (), soft_defaults)
+
+
+def make_deflection(
+    spec: Union[str, PolicySpec], **soft_defaults: Any
+) -> DeflectionPolicy:
+    """Construct a registered prefill-deflection policy from a spec/name."""
+    return _build(_DEFLECTION, "deflection", spec, (), soft_defaults)
+
+
+def make_autoscaler(
+    spec: Union[str, PolicySpec], **soft_defaults: Any
+) -> AutoscalerPolicy:
+    """Construct a registered autoscaler policy from a spec (or bare name)."""
+    return _build(_AUTOSCALER, "autoscaler", spec, (), soft_defaults)

@@ -362,6 +362,13 @@ class DisaggServer:
     def _now(self) -> float:
         return (self.clock.monotonic() - self._t0) * self.ecfg.time_scale
 
+    def peek_now(self) -> float:
+        """Observation-free virtual now: the control plane's clock read.
+        Unlike `_now` this never charges a `ManualClock.auto_step`, so a
+        fleet controller may poll at any frequency without perturbing the
+        replica's deterministic timing."""
+        return (self.clock.peek() - self._t0) * self.ecfg.time_scale
+
     def reset_clock(self) -> None:
         """Re-zero virtual time (arrivals are relative to this origin);
         virtual clocks re-zero exactly to their construction origin."""
@@ -370,6 +377,30 @@ class DisaggServer:
             self._t0 = 0.0 if origin is None else origin
         else:
             self._t0 = self.clock.monotonic()
+
+    # --------------------------------------------------------------- restart
+    def reset_for_restart(self) -> None:
+        """Return the server to its just-constructed state: the live half of
+        `dist/fault.py::plan_recovery`'s final step. Drops every decode slot
+        (the KV is gone; survivors re-prefill restored requests), rebuilds
+        the adaptive scheduler state, and re-zeroes the clock, so the
+        restarted replica serves exactly as a freshly built one."""
+        ecfg = self.ecfg
+        # drop the old cache before allocating the new one: at full width a
+        # restart would otherwise hold two decode caches for a moment
+        if self.decode.paged:
+            # the pool, allocator, and radix cache are one consistent unit
+            self.decode.pool = None
+            self.decode._init_paged(self.model.cfg)
+        else:
+            self.decode.cache = None
+            self.decode.cache = self.model.init_cache(
+                ecfg.max_slots + 1, ecfg.max_len, device=self.device
+            )
+        self.decode.alloc = SlotAllocator(ecfg.max_slots, ecfg.kv_cap_tokens)
+        self._init_sched_state()
+        self.last_session = None
+        self.reset_clock()
 
     # ------------------------------------------------------------------ serve
     def serve(self, requests: List[Tuple[Request, List[int]]]) -> Dict[int, List[int]]:

@@ -10,7 +10,7 @@ hashes behaves as a trie without storing token strings. Two call sites:
     ``prefix_hit_tokens``, which (a) feeds the per-session hit accounting
     in `SessionMetrics` and (b) is granted back to the `SlotAllocator` as a
     KV token-budget *credit* — reused prefix KV doesn't charge the cap.
-  * **Router affinity** (`repro.serving.router`, not yet ported): the router keeps one
+  * **Router affinity** (`repro_torch.serving.router`): the router keeps one
     `PrefixCache` per replica as its *own* record of which prefixes it sent
     where (a real router can't see replica internals), and the
     ``prefix-affinity`` policy routes to the replica with the longest match.

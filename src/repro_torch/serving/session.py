@@ -11,8 +11,9 @@ exposes the three primitives an online frontend needs:
     cancel(rid)               client disconnect: reclaim the request's
                               queue entry / decode slot, Phase.CANCELLED
 
-(The JAX package's `repro.serving.frontend.AsyncServeSession` builds the
-online asyncio frontend on exactly these primitives; it is not ported yet.)
+(`repro_torch.serving.frontend.AsyncServeSession` builds the online
+asyncio frontend — streaming handles, backpressure, open-loop replay — on
+exactly these primitives.)
 
 Admission control: ``max_queue_depth`` bounds the prefill queue, and
 ``tenant_queue_depth`` additionally bounds how many queued requests any one
