@@ -53,6 +53,24 @@ Phases, each printed on its own lines:
            ready, the controller records the kill and its recovery plan and
            restores requests on the survivors. TTFT and TPOT per request,
            walls and peak memory (before and after the kill) are printed
+  eval     the evaluation harness at llama3-8b full width and depth in bf16
+           (random weights from a seed, one bundle shared by every cell):
+           run_grid over paper-longtail x kairos-urgency x kairos-slack x all
+           six backends (sim, engine, async-engine, a 2-replica router, a
+           1P:1D disagg fleet, a churn fleet that loses replica 0 at
+           EVAL_KILL_AT with queue-threshold autoscaling up to 3) on the
+           harness's ManualClocks, 24 requests of up to 1536 prompt and 32
+           output tokens. Each cell: every request done, 0 sheds, the CPU
+           test's schema, both attention kernels launched in every engine
+           cell (counted from zero per cell), every logit row finite; the
+           disagg cell completes 24 handoffs, the churn cell records the
+           kill and its recovery plan. Then run_loadgen --realtime on one
+           server, the same 24 requests at the trace's 3 qps in real
+           seconds (SLOs TTFT 2.0 s, TPOT 0.1 s, placeholders), under
+           kairos-urgency/kairos-slack and fcfs/continuous: TTFT, TPOT and
+           E2E attainment, goodput, decode tokens/s, wall, TTFT and TPOT
+           median and max are printed (no policy is asserted to win); fails
+           only if a request is not terminal or a kernel did not launch
   parity   float32 at full width: llama3-8b cut to 4 layers, engine tokens
            under two policy pairs, slot and paged, equal reference_generate's,
            and so do those of the async frontend, a 2-replica router, a
@@ -1105,6 +1123,162 @@ def phase_fleet(ctx) -> None:
     _free()
 
 
+# ----------------------------------------------------------------------- eval
+EVAL_N = 24
+# virtual seconds on the churn cell's fleet clock at which replica 0 dies:
+# requests are then in flight on it (the schedule on ManualClocks is the
+# same on any card; the restored rids are printed)
+EVAL_KILL_AT = 0.01
+# the CPU test's cell keys (tests/test_torch_workloads.py), plus each fleet
+# backend's block
+EVAL_CELL_KEYS = {
+    "scenario", "prefill", "decode", "backend", "wall_time_s", "n_requests",
+    "n_completed", "attainment", "per_tenant", "per_class", "goodput", "shed",
+    "cancelled",
+}
+EVAL_BLOCKS = {"sim": set(), "engine": set(), "async-engine": set(), "router": {"router"},
+               "disagg": {"disagg"}, "churn": {"churn"}}
+
+
+def _eval_config():
+    from repro_torch.workloads import HarnessConfig
+
+    return HarnessConfig(
+        n_requests=EVAL_N, seed=0, engine_arch="llama3-8b", engine_max_prompt=1536,
+        engine_max_output=32, engine_max_len=2048, engine_chunk_size=512, engine_max_slots=8,
+        router_replicas=2, disagg_prefill=1, disagg_decode=1,
+        churn_kills=((EVAL_KILL_AT, 0),), autoscaler_policy="queue-threshold",
+        fleet_max_replicas=3,
+    )
+
+
+def _att(cell) -> str:
+    a = cell["attainment"]
+    return (f"attainment TTFT {a['ttft']:.4f} TPOT {a['tpot']:.4f} E2E {a['e2e']:.4f}, goodput "
+            f"{cell['goodput']:.2f} tokens/s")
+
+
+def phase_eval(ctx) -> None:
+    """The harness's grid over all six backends on ManualClocks, then two
+    realtime loadgen cells on one server, llama3-8b bf16 at full width."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import loadgen
+    from repro_torch.models import build_model
+    from repro_torch.workloads import BACKENDS, harness
+
+    dev, card = ctx["device"], ctx["card"]
+    t0 = time.perf_counter()
+    model = build_model(get_config("llama3-8b"))  # bf16, the config's own dtype
+    bundle = harness._EngineBundle("llama3-8b", device=dev, model=model,
+                                   params=model.init(seed=0, device=dev)).build()
+    torch.cuda.synchronize()
+    say(f"[eval] bundle {bundle.cfg.name} {bundle.cfg.dtype}, {bundle.cfg.num_layers} layers, "
+        f"random weights (seed 0), built in {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # A. the grid on the harness's own ManualClocks, launches counted per cell
+    hcfg = _eval_config()
+    evaluate_cell, counts = harness.evaluate_cell, {}
+
+    def counted(scenario, prefill, decode, backend, **kw):
+        _attention_launches(zero=True)
+        probe = _Probe()
+        try:
+            cell = evaluate_cell(scenario, prefill, decode, backend, **kw)
+        finally:
+            finite = probe.close()
+        counts[backend] = (_attention_launches(), finite)
+        _free()
+        return cell
+
+    t0 = time.perf_counter()
+    harness.evaluate_cell = counted
+    try:
+        report = harness.run_grid(["paper-longtail"], ["kairos-urgency"], ["kairos-slack"],
+                                  BACKENDS, hcfg, device=dev, bundle=bundle)
+    finally:
+        harness.evaluate_cell = evaluate_cell
+    t_grid = time.perf_counter() - t0
+    check([c["backend"] for c in report["cells"]] == list(BACKENDS),
+          f"eval grid: cells {[c['backend'] for c in report['cells']]}")
+    for cell in report["cells"]:
+        b = cell["backend"]
+        launches, finite = counts[b]
+        check(set(cell) == EVAL_CELL_KEYS | EVAL_BLOCKS[b],
+              f"eval {b}: cell keys {sorted(cell)}")
+        check(cell["n_requests"] == EVAL_N and cell["shed"]["total"] == 0
+              and cell["cancelled"]["total"] == 0 and cell["n_completed"] == EVAL_N,
+              f"eval {b}: {cell['n_completed']}/{cell['n_requests']} done, shed "
+              f"{cell['shed']['total']}, cancelled {cell['cancelled']['total']}")
+        if b != "sim":
+            check(all(n > 0 for n in launches.values()),
+                  f"eval {b}: a kernel never launched: {launches}")
+            check(finite, f"eval {b}: a logit row was not finite")
+        say(f"[eval] grid {b}: {cell['n_completed']}/{cell['n_requests']} done in "
+            f"{cell['wall_time_s']:.3f} s; {_att(cell)} (virtual time); launches "
+            f"{launches if b != 'sim' else 'none (cost model)'} [{card}]")
+    cells = {c["backend"]: c for c in report["cells"]}
+    h = cells["disagg"]["disagg"]["handoff"]
+    check(h["transfers_completed"] == EVAL_N, f"eval disagg: handoffs {h}")
+    say(f"[eval] grid disagg: {h['transfers_completed']} handoffs (cross "
+        f"{h['cross_transfers']}), queue wait max {h['queue_wait_max']:.4f} s (virtual)")
+    f = cells["churn"]["churn"]["fleet"]
+    check(f["kills"] == 1 and len(f["recoveries"]) == 1,
+          f"eval churn: kills {f['kills']}, skipped {f['kills_skipped']}")
+    rec = f["recoveries"][0]
+    check(rec["replica"] == 0 and rec["steps"], f"eval churn: recovery {rec}")
+    say(f"[eval] grid churn: replica 0 killed at t={rec['t']:.4f} (virtual), restored "
+        f"{rec['restored']}, rescheduled {rec['rescheduled']}; recovery plan "
+        f"{[s[0] for s in rec['steps']]}; scale-ups {f['scale_ups']}, scale-downs "
+        f"{f['scale_downs']}; assigned {cells['churn']['churn']['assigned']}")
+    say(f"[eval] grid router: assigned {cells['router']['router']['assigned']}")
+    say(f"[eval] grid of {len(report['cells'])} cells in {t_grid:.1f} s [{card}]")
+
+    # B. real clocks: one server, the trace's arrivals in real seconds
+    rt = dataclasses.replace(hcfg, engine_arrival_scale=1.0, engine_slo_ttft_scale=0.25,
+                             engine_slo_tpot_scale=2.0)
+    setup, seen = loadgen._engine_setup, {}
+
+    def kept(*args, **kw):
+        servers, pairs = setup(*args, **kw)
+        seen["pairs"] = pairs
+        return servers, pairs
+
+    for prefill, decode in (("kairos-urgency", "kairos-slack"), ("fcfs", "continuous")):
+        _attention_launches(zero=True)
+        loadgen._engine_setup = kept
+        try:
+            rep = loadgen.run_loadgen("paper-longtail", prefill, decode, rt, realtime=True,
+                                      device=dev, bundle=bundle)
+        finally:
+            loadgen._engine_setup = setup
+        launches = _attention_launches()
+        [cell] = rep["cells"]
+        reqs = [r for r, _ in seen["pairs"]]
+        terminal = ("done", "failed", "cancelled")
+        check(all(r.phase.value in terminal for r in reqs),
+              f"eval realtime {prefill}/{decode}: requests not terminal: "
+              f"{[(r.rid, r.phase.value) for r in reqs if r.phase.value not in terminal]}")
+        check(all(n > 0 for n in launches.values()),
+              f"eval realtime {prefill}/{decode}: a kernel never launched: {launches}")
+        done = [r for r in reqs if r.phase.value == "done"]
+        ttft = sorted(r.ttft() for r in done)
+        tpot = sorted(r.mean_tpot() for r in done if r.mean_tpot() is not None)
+        decoded = sum(r.n_generated - 1 for r in done)
+        wall = cell["wall_time_s"]
+        say(f"[eval] realtime {prefill}/{decode}: {cell['n_completed']}/{cell['n_requests']} "
+            f"done in {wall:.3f} s (arrivals over {reqs[-1].arrival:.3f} s); {_att(cell)}; "
+            f"decode {decoded} tokens, {decoded / wall:.2f} tokens/s over the wall; TTFT median "
+            f"{ttft[len(ttft) // 2]:.4f} s max {ttft[-1]:.4f} s; TPOT median "
+            f"{tpot[len(tpot) // 2]:.5f} s max {tpot[-1]:.5f} s; launches {launches} [{card}]")
+        _free()
+    del bundle, model
+    _free()
+
+
 # --------------------------------------------------------------------- parity
 def phase_parity(ctx) -> None:
     import numpy as np
@@ -1384,7 +1558,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         for phase in (phase_device, phase_build, phase_kernels, phase_serve, phase_fleet,
-                      phase_parity, phase_ssm):
+                      phase_eval, phase_parity, phase_ssm):
             t0 = time.perf_counter()
             phase(ctx)
             name = phase.__name__.removeprefix("phase_")

@@ -10,7 +10,11 @@ and prints: both walls, the device's busy and idle share in the profiled
 serve, device time by kernel group (the two attention kernels, matrix
 products, copies and indexing, the rest), the top kernels by device time,
 the host time of prefill chunks and decode steps (each ends in a device
-sync), and the device time of the kernels each of them launched. The
+sync), the device time of the kernels that ran inside each of them, and
+the device time outside every range. A kernel belongs to the range whose
+host interval holds its start (`range_device_time`): the range ends in a
+device sync, so what it launched has run by its end. This counts the
+kernels launched through ``ctypes`` too, which no ATen op encloses. The
 profiler's own cost stretches the profiled wall, so the idle share it gives
 is an upper bound. Weights are random (seed 0). ``--device`` defaults to
 ``cuda``; ``--device cpu --arch llama3-8b-smoke`` rehearses the script
@@ -19,9 +23,11 @@ without a card.
 from __future__ import annotations
 
 import argparse
+import bisect
 import subprocess
 import time
 from collections import defaultdict
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -49,6 +55,41 @@ def _group(name: str) -> str:
         if any(k in low for k in keys):
             return group
     return "other"
+
+
+def device_kernels(events) -> List[Tuple[str, float, float]]:
+    """``(name, start_us, end_us)`` of every device activity in a profile's
+    ``events()`` (kernels, copies, sets); the profiler's device-side copies
+    of the ``record_function`` ranges are left out."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in events
+            if e.device_type.name == "CUDA" and not e.is_user_annotation
+            and e.name not in _LABELS]
+
+
+def range_device_time(
+    events, kernels: Sequence[Tuple[str, float, float]], labels: Iterable[str] = _LABELS,
+) -> Tuple[Dict[str, float], Dict[str, int], float]:
+    """Device time (us) of ``kernels`` by the host range each started in:
+    ``({label: us}, {label: ranges}, us outside every range)``. The ranges
+    are the CPU-side ``record_function`` events named in ``labels``; they
+    run one after another on the host thread and do not overlap. The
+    per-label times plus the outside time sum to the kernels' total."""
+    labels = tuple(labels)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.name in labels and e.device_type.name == "CPU")
+    starts = [s for s, _, _ in spans]
+    inside = dict.fromkeys(labels, 0.0)
+    count = dict.fromkeys(labels, 0)
+    for _, _, name in spans:
+        count[name] += 1
+    outside = 0.0
+    for _, k0, k1 in kernels:
+        i = bisect.bisect_right(starts, k0) - 1
+        if i >= 0 and k0 <= spans[i][1]:
+            inside[spans[i][2]] += k1 - k0
+        else:
+            outside += k1 - k0
+    return inside, count, outside
 
 
 def _labelled(fn, label, sink):
@@ -91,13 +132,13 @@ def main(argv=None) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, _ = serve()
 
-    events = prof.key_averages()
-    dev = [e for e in events if e.device_type.name == "CUDA" and e.key not in _LABELS
-           and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in dev)
-    groups = defaultdict(float)
-    for e in dev:
-        groups[_group(e.key)] += e.self_device_time_total
+    kernels = device_kernels(prof.events())
+    busy_us = sum(k1 - k0 for _, k0, k1 in kernels)
+    groups, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
+    for name, k0, k1 in kernels:
+        groups[_group(name)] += k1 - k0
+        by_name[name][0] += k1 - k0
+        by_name[name][1] += 1
     card = "cpu"
     if torch.cuda.is_available():
         card = subprocess.run(
@@ -113,20 +154,25 @@ def main(argv=None) -> None:
           f"wall (same requests; the schedule may differ slightly)")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[profile] group {g:18s} {us / 1e3:10.3f} ms  {100 * us / busy_us:5.1f}% of busy")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile] kernel {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:6d}  "
-              f"{e.key[:90]}")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[profile] kernel {us / 1e3:10.3f} ms  x{n:6d}  {name[:90]}")
     for label, times in host_plain.items():
         print(f"[profile] host {label:14s} x{len(times):4d} mean "
               f"{1e3 * sum(times) / max(len(times), 1):.3f} ms unprofiled (ends in a device sync)")
-    # a range's device time: the kernels launched inside it, from the CPU-side
-    # range event (the same label's device-side span would count idle gaps)
-    for e in events:
-        if e.key in _LABELS and e.device_type.name == "CPU":
-            print(f"[profile] device {e.key:14s} x{e.count:4d} mean "
-                  f"{e.device_time_total / 1e3 / e.count:.3f} ms of kernels launched inside "
-                  f"the range (profiled serve), "
-                  f"{100 * e.device_time_total / max(busy_us, 1e-9):.1f}% of busy")
+    inside, count, outside = range_device_time(prof.events(), kernels)
+    for label in _LABELS:
+        print(f"[profile] device {label:14s} x{count[label]:4d} mean "
+              f"{inside[label] / 1e3 / max(count[label], 1):.3f} ms of kernels that ran "
+              f"inside the range (profiled serve), total {inside[label] / 1e3:.3f} ms, "
+              f"{100 * inside[label] / max(busy_us, 1e-9):.1f}% of busy")
+    print(f"[profile] device outside every range {outside / 1e3:.3f} ms, "
+          f"{100 * outside / max(busy_us, 1e-9):.1f}% of busy")
+    for group in ("prefill_attention", "decode_attention"):
+        attn = [k for k in kernels if _group(k[0]) == group]
+        split, _, rest = range_device_time(prof.events(), attn)
+        print(f"[profile] {group} by range: " + ", ".join(
+            f"{label} {split[label] / 1e3:.3f} ms" for label in _LABELS)
+            + f", outside {rest / 1e3:.3f} ms")
 
 
 if __name__ == "__main__":

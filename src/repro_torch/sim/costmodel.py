@@ -1,6 +1,6 @@
-"""Step-time cost model shared by the serving session's KV-handoff pricing
-(a copy of ``repro.sim.costmodel.CalibratedCostModel``; the simulator and
-the TPU roofline model are not ported yet).
+"""Step-time cost model of the discrete-event simulator, also the serving
+session's KV-handoff pricing (a copy of ``repro.sim.costmodel`` without
+``TPUCostModel``, whose coefficients are TPU v5e's).
 
 Calibrated to the paper's measured numbers (MiniMax-M2.5, 4xH200 TP4):
   prefill:  8K -> 400.4 ms, 128K -> 8.8 s            (paper §2.2)
@@ -84,3 +84,14 @@ class CalibratedCostModel:
         return self.transfer_lat + n_tokens * self.kv_bytes_per_token / self.transfer_bw
 
 
+PAPER_COST_MODEL = CalibratedCostModel()
+
+
+def check_calibration(cm: CalibratedCostModel = PAPER_COST_MODEL) -> dict:
+    """Returns the paper's calibration points vs the model's predictions."""
+    return {
+        "prefill_8k": (cm.prefill_time(8192), 0.4004),
+        "prefill_128k": (cm.prefill_time(131072), 8.8),
+        "decode_8k_b1": (cm.decode_step_time([8192]), 0.0110),
+        "decode_128k_b1": (cm.decode_step_time([131072]), 0.0403),
+    }
