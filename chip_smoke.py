@@ -10,11 +10,17 @@ Phases, each printed on its own lines:
            float32 matmuls and convolutions, so f32 means f32
   build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
   kernels  every kernel against its plain PyTorch version on the card, over
-           the sweep of tests/test_kernels.py and at the serving shapes of
-           llama3-8b (attention), zamba2-2.7b (attention at Dh=80, SSD scan)
-           and mamba2-130m (SSD scan), each in f32 (attention tol 2e-5, SSD
+           the sweep of tests/test_kernels.py (plus Dh=256) and at the serving
+           shapes of llama3-8b (attention), zamba2-2.7b (attention at Dh=80,
+           SSD scan), gemma2-9b (attention at Dh=256, prefill with logit cap
+           50), chameleon-34b (decode at 8 query heads per KV head) and
+           mamba2-130m (SSD scan), each in f32 (attention tol 2e-5, SSD
            1e-4) and bf16 (tol 2e-2; bf16 prefill also within 6e-3 in
-           relative norm of the plain version in f32, logit cap included),
+           relative norm of the plain version in f32, logit cap included,
+           and bf16 decode within BF16_DECODE_REL lane by lane, where the
+           kernel run with planted faults, every kv_len one row short or
+           the longest lane without its last tile or split, must land
+           beyond twice that limit),
            with bf16 times (per call as its caller sees it, each run after
            an L2 flush, and the device time alone beside it), bounds and,
            for attention, a library call as yardstick; any mismatch
@@ -79,13 +85,37 @@ Phases, each printed on its own lines:
            requests on every card; they re-prefill on the survivor);
            mamba2-130m (full depth) and zamba2-2.7b (cut to 12 layers),
            Model.prefill's last logits equal token-by-token Model.decode's
-           (tol 2e-4) and the 8 greedy tokens after both paths are equal
+           (tol 2e-4) and the 8 greedy tokens after both paths are equal;
+           gemma2-9b cut to 4 layers (local, global, local, global) and
+           phi3.5-moe cut to 2 (at capacity factor 8, where nothing is
+           dropped), engine tokens slot and paged equal reference_generate's,
+           and gemma2's ring (a 4500-token prompt prefilled, handed into
+           init_cache(1, 8192) and decoded 16 steps) gives the greedy tokens
+           of a plain 8192-row cache under the window mask; phi3.5-moe's
+           expert layer at full width, f32 and capacity factor 1.25, on a
+           512-token chunk skewed so that experts overflow: moe_ffn on the
+           card equals the same call on the CPU (MOE_CARD_REL), the expert
+           choices are identical and choices were dropped
   ssm      zamba2-2.7b, then mamba2-130m, at full width and depth in bf16
            (random weights from a seed): Model.prefill of 4 right-padded
            prompts, handoff into a decode cache, 32 greedy Model.decode
            steps; the SSD scan (and for zamba2 both attention kernels) must
            launch once per layer, every SSD call on the tensor-core route;
            the SSD scan's share of the prefill (layers x its B=4 time)
+  families the moe, vlm and alternating local/global families at full width
+           in bf16 (random weights from a seed): gemma2-9b (all 42 layers)
+           and phi3.5-moe-42b-a6.6b (16 of 32 layers; all 32 take ~84 GB in
+           bf16, more than the card holds) each serve 8 requests of 64-3584
+           prompt and 32 output tokens, 50 ms apart, at max_len 4096 (gemma2's
+           window), chunk 512, under the Kairos policies, slot then paged:
+           every request done, every logit row finite, both kernels launched
+           at the model's head dim (256 for gemma2) and no call on a plain
+           windowed path; gemma2's model API prefills 5120 + 4400 tokens (the
+           local layers' window binds: the naive path), hands off into the
+           ring of init_cache(2, 8192) and decodes 32 steps, every attention
+           (the ring too) on the decode kernel; chameleon-34b (8 of 48
+           layers) prefills from seeded embeddings, decodes 16 steps and
+           serves 4 requests on tokens, both kernels at Hq/Hkv = 8
 
 Every phase runs on every call. It imports nothing of JAX or of the JAX
 package, exits non-zero when there is no card or when run outside the
@@ -115,6 +145,17 @@ TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}  # atol = rtol, as tests/t
 # phase checks that a causal edge one row off moves the output by more than
 # twice it at each serving shape (2.4e-2 at the llama3-8b chunk).
 BF16_PREFILL_REL = 6e-3
+# bf16 decode, relative to the f32 plain version (`_decode_ref_f32`), lane by
+# lane (one sequence, all its heads): the 2e-2 elementwise tolerance is about
+# as large as a typical output over a few thousand rows, so a lane missing its
+# last tile or split would pass it. The kernels phase runs the kernel with such
+# faults planted (every kv_len one row short; the longest lane's last tile of
+# DECODE_TILE_ROWS, and its last split, left out) and checks that each moves
+# the output by more than twice this limit. The limit is about twice the
+# largest reading on an H100 (3.1e-3 over the sweep, the edges and the serving
+# shapes); the planted faults there read 8.7e-2 and more.
+BF16_DECODE_REL = 6e-3
+DECODE_TILE_ROWS = 32  # BK in csrc/decode_attention.cu
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device spin at the H100's clock (`_time_ms`)
 
 
@@ -230,6 +271,44 @@ def _check_bf16_prefill(out, q, k, v, q_pos, kv_len, what, logit_cap=0.0) -> flo
     return rel
 
 
+def _decode_ref_f32(q, k, v, kv_len, logit_cap=0.0):
+    """The plain version of decode attention computed in f32 from the same
+    (bf16) inputs, P rounded to bf16 before P.V as the kernel and the
+    reference round it, the output left in f32: what the bf16 kernel is held
+    to in relative norm (`BF16_DECODE_REL`)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ref import NEG_INF
+
+    b, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(b, hkv, hq // hkv, dh)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) / dh ** 0.5
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    mask = torch.arange(k.shape[1], device=q.device)[None, :] < kv_len[:, None]
+    p = torch.softmax(torch.where(mask[:, None, None], s, NEG_INF), dim=-1)
+    out = torch.einsum("bgrk,bkgd->bgrd", p.to(torch.bfloat16).float(), v.float())
+    return out.reshape(b, hq, dh)
+
+
+def _lane_rel(out, ref):
+    """||out_b - ref_b|| / ||ref_b|| of every sequence b (all its heads)."""
+    return ((out.float() - ref.float()).flatten(1).norm(dim=1)
+            / ref.float().flatten(1).norm(dim=1))
+
+
+def _check_bf16_decode(out, ref32, kv_len, what) -> float:
+    """The bf16 decode kernel's output against `_decode_ref_f32` in relative
+    norm, every lane within `BF16_DECODE_REL`; returns the worst lane."""
+    rel = _lane_rel(out, ref32)
+    worst = int(rel.argmax())
+    check(float(rel[worst]) <= BF16_DECODE_REL,
+          f"decode_attention bf16 {what}: lane {worst} (kv_len {int(kv_len[worst])}) relative "
+          f"error {float(rel[worst]):.3e} beyond {BF16_DECODE_REL}")
+    return float(rel[worst])
+
+
 def _max_err(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max())
 
@@ -259,6 +338,7 @@ def phase_kernels(ctx) -> None:
     dev = torch.device("cuda")
     sweep_err = {"prefill_attention": 0.0, "decode_attention": 0.0}
     sweep_rel = 0.0  # bf16 prefill, relative to the f32 plain version
+    sweep_drel = 0.0  # bf16 decode, the same, worst lane
 
     def ints(lo, hi, n):
         return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
@@ -268,6 +348,7 @@ def phase_kernels(ctx) -> None:
         for b, sq, skv, hq, hkv, dh in [
             (2, 128, 256, 4, 2, 64), (1, 64, 64, 8, 8, 128), (2, 100, 300, 6, 2, 32),
             (1, 256, 512, 4, 1, 128), (3, 32, 160, 4, 2, 16), (2, 96, 96, 4, 4, 80),
+            (2, 100, 300, 16, 8, 256),
         ]:
             q = _randn(gen, (b, sq, hq, dh), dtype)
             k = _randn(gen, (b, skv, hkv, dh), dtype)
@@ -286,6 +367,7 @@ def phase_kernels(ctx) -> None:
                     out, q, k, v, q_pos, kv_len, str((b, sq, skv, hq, hkv, dh))))
         for b, s, hq, hkv, dh in [
             (4, 512, 8, 2, 64), (2, 300, 4, 4, 128), (1, 1024, 16, 2, 32), (3, 96, 8, 1, 128),
+            (3, 600, 16, 8, 256),
         ]:
             q = _randn(gen, (b, hq, dh), dtype)
             k = _randn(gen, (b, s, hkv, dh), dtype)
@@ -297,6 +379,9 @@ def phase_kernels(ctx) -> None:
             sweep_err["decode_attention"] = max(sweep_err["decode_attention"], err)
             check(_close(out, ref, dtype),
                   f"decode_attention {dtype} {(b, s, hq, hkv, dh)}: max err {err}")
+            if dtype == torch.bfloat16:
+                sweep_drel = max(sweep_drel, _check_bf16_decode(
+                    out, _decode_ref_f32(q, k, v, kv_len), kv_len, str((b, s, hq, hkv, dh))))
     # logit cap 30 (f32, inputs scaled by 3 so the cap bites)
     q = _randn(gen, (1, 64, 4, 32), torch.float32, 3.0)
     k = _randn(gen, (1, 128, 2, 32), torch.float32, 3.0)
@@ -339,7 +424,8 @@ def phase_kernels(ctx) -> None:
         f"stale tail bit-identical); max abs err prefill {sweep_err['prefill_attention']:.3e} "
         f"decode {sweep_err['decode_attention']:.3e}; bf16 prefill relative error (limit "
         f"{BF16_PREFILL_REL}) sweep max {sweep_rel:.3e}, logit cap 30 at the llama3-8b chunk "
-        f"{cap_rel:.3e}")
+        f"{cap_rel:.3e}; bf16 decode relative error, worst lane (limit {BF16_DECODE_REL}) "
+        f"sweep max {sweep_drel:.3e}")
     _attention_edge_checks(gen)
 
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB of L2
@@ -359,10 +445,24 @@ def phase_kernels(ctx) -> None:
     extra = [
         _prefill_row(gen, flush, 1, 2048, 2048, 32, 32, 80),
         _decode_row(gen, flush, 4, 2080, 32, 32, 80, [2080, 1568, 732, 162]),
+        # gemma2-9b (Dh=256, logit cap 50): a 512-token chunk at the end of a
+        # 4096-row prefix, and decode of 8 lanes over 4096-row caches
+        _prefill_row(gen, flush, 1, 512, 4096, 16, 8, 256, cap=50.0),
+        _decode_row(gen, flush, 8, 4096, 16, 8, 256,
+                    [4096, 3584, 3000, 2048, 1500, 777, 256, 65]),
+        # chameleon-34b: 8 query heads per KV head
+        _decode_row(gen, flush, 8, 2048, 64, 8, 128, [2048, 1900, 1536, 1024, 700, 512, 130, 64]),
     ]
     for r in rows + extra:
-        rel = (f", relative error bf16 {r.pop('rel_err'):.3e} (limit {BF16_PREFILL_REL}; "
-               f"causal edge one row off: {r.pop('edge_rel'):.3e})" if "rel_err" in r else "")
+        if "rel_err" in r:
+            rel = (f", relative error bf16 {r.pop('rel_err'):.3e} (limit {BF16_PREFILL_REL}; "
+                   f"causal edge one row off: {r.pop('edge_rel'):.3e})")
+        else:
+            faults = r.pop("faults")
+            rel = (f", relative error bf16 worst lane {r.pop('lane_rel'):.3e} (limit "
+                   f"{BF16_DECODE_REL}; planted faults: every kv_len one row short "
+                   f"{faults['row']:.3e}, longest lane without its last tile "
+                   f"{faults['tile']:.3e}, without its last split {faults['split']:.3e})")
         say(f"[kernels] {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms per call (device "
             f"alone {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, sdpa "
             f"{r['library_ms']:.4f} ms (device alone {r['library_device_ms']:.4f} ms), bound "
@@ -394,7 +494,7 @@ def _attention_edge_checks(gen) -> None:
             t[i, n:] = float("nan")
         return t
 
-    worst = 0.0
+    worst = worst_rel = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         # prefill: chunks whose kv_len ends inside a 64-row tile
         b, sq, skv, hq, hkv, dh = 2, 100, 300, 8, 2, 128
@@ -419,9 +519,12 @@ def _attention_edge_checks(gen) -> None:
         v = _randn(gen, (b, s, hkv, dh), dtype)
         out = decode_attention(q, k, v, kv_len)
         ref = decode_attention_ref(q, k, v, kv_len)
-        worst = max(worst, _max_err(out, ref)) if dtype == torch.bfloat16 else worst
         check(_close(out, ref, dtype), f"decode_attention {dtype} kv_len {lens}: max err "
               f"{_max_err(out, ref)}")
+        if dtype == torch.bfloat16:
+            worst = _max_err(out, ref)
+            worst_rel = _check_bf16_decode(out, _decode_ref_f32(q, k, v, kv_len), kv_len,
+                                           f"kv_len {lens}")
         out2 = decode_attention(q, nan_tail(k, lens), nan_tail(v, lens), kv_len)
         check(torch.equal(out, out2), f"decode_attention {dtype}: NaN past kv_len changed the output")
         for i in (0, 4, 6):  # batch invariance, and independence of S
@@ -432,14 +535,16 @@ def _attention_edge_checks(gen) -> None:
                   f"decode_attention {dtype}: sequence {i} alone differs from it in the batch")
     say(f"[kernels] edges ok: NaN past kv_len bit-identical (prefill f32/bf16, kv_len inside a "
         f"tile; decode f32/bf16); decode at kv_len 1, split boundaries ({SPLIT_ROWS}-row "
-        f"splits) and 5 splits within tolerance (bf16 max abs err {worst:.3e}); a sequence alone, "
+        f"splits) and 5 splits within tolerance (bf16 max abs err {worst:.3e}, relative error "
+        f"worst lane {worst_rel:.3e}, limit {BF16_DECODE_REL}); a sequence alone, "
         f"in a batch of 8 and in a cache cut to its kv_len bit-identical")
 
 
-def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh) -> dict:
+def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0) -> dict:
     """prefill_attention against its plain version at one serving shape, the
     chunk at the end of the prefix: checked in f32 (the tight tolerance) then
-    bf16 (the serving dtype, which is timed, with SDPA as yardstick)."""
+    bf16 (the serving dtype, which is timed, with SDPA as yardstick; SDPA
+    takes no logit cap, so with ``cap`` it computes the uncapped function)."""
     import torch
     import torch.nn.functional as F
 
@@ -452,18 +557,18 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh) -> dict:
     kv_len = torch.full((b,), skv, device=dev, dtype=torch.int32)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        q = _randn(gen, (b, sq, hq, dh), dtype)
-        k = _randn(gen, (b, skv, hkv, dh), dtype)
+        q = _randn(gen, (b, sq, hq, dh), dtype, 3.0 if cap else 1.0)
+        k = _randn(gen, (b, skv, hkv, dh), dtype, 3.0 if cap else 1.0)
         v = _randn(gen, (b, skv, hkv, dh), dtype)
-        out = prefill_attention(q, k, v, q_pos, kv_len)
-        ref = prefill_attention_ref(q, k, v, q_pos, kv_len)
+        out = prefill_attention(q, k, v, q_pos, kv_len, logit_cap=cap)
+        ref = prefill_attention_ref(q, k, v, q_pos, kv_len, logit_cap=cap)
         errs[dtype] = _max_err(out, ref)
         check(_close(out, ref, dtype),
               f"prefill_attention at serving shape Dh={dh} {dtype}: max err {errs[dtype]}")
-    rel = _check_bf16_prefill(out, q, k, v, q_pos, kv_len, f"at serving shape Dh={dh}")
+    rel = _check_bf16_prefill(out, q, k, v, q_pos, kv_len, f"at serving shape Dh={dh}", cap)
     # what the limit must catch: the plain version with its causal edge one row off
-    edge_rel = _rel_err(_prefill_ref_f32(q, k, v, q_pos + 1, kv_len),
-                        _prefill_ref_f32(q, k, v, q_pos, kv_len))
+    edge_rel = _rel_err(_prefill_ref_f32(q, k, v, q_pos + 1, kv_len, cap),
+                        _prefill_ref_f32(q, k, v, q_pos, kv_len, cap))
     check(edge_rel > 2 * BF16_PREFILL_REL, f"prefill_attention Dh={dh}: a causal edge one row "
           f"off moves the output by {edge_rel:.3e}, not clearly beyond {BF16_PREFILL_REL}")
     kvp = torch.arange(skv, device=dev)
@@ -484,25 +589,31 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh) -> dict:
         max_abs_err=errs[torch.bfloat16], tol=TOL["torch.bfloat16"],
         max_abs_err_f32=errs[torch.float32],
         rel_err=rel, edge_rel=edge_rel,
-        ms=_time_ms(lambda: prefill_attention(q, k, v, q_pos, kv_len), iters=20, flush=flush),
-        device_ms=_time_ms(lambda: prefill_attention(q, k, v, q_pos, kv_len), iters=20,
-                           flush=flush, device_only=True),
-        plain_ms=_time_ms(lambda: prefill_attention_ref(q, k, v, q_pos, kv_len), iters=5,
-                          flush=flush),
+        ms=_time_ms(lambda: prefill_attention(q, k, v, q_pos, kv_len, logit_cap=cap), iters=20,
+                    flush=flush),
+        device_ms=_time_ms(lambda: prefill_attention(q, k, v, q_pos, kv_len, logit_cap=cap),
+                           iters=20, flush=flush, device_only=True),
+        plain_ms=_time_ms(lambda: prefill_attention_ref(q, k, v, q_pos, kv_len, logit_cap=cap),
+                          iters=5, flush=flush),
         library_ms=lib(False), library_device_ms=lib(True),
         **_bound(flops, nbytes, "torch.bfloat16"),
-        shape=f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} bf16, q_pos {skv - sq}..{skv - 1}",
+        shape=(f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} bf16, q_pos {skv - sq}.."
+               f"{skv - 1}" + (f", logit cap {cap} (SDPA uncapped)" if cap else "")),
     )
 
 
 def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
     """decode_attention against its plain version at one serving shape, f32
-    then bf16 (timed, with SDPA as yardstick)."""
+    then bf16 (timed, with SDPA as yardstick); bf16 also lane by lane in
+    relative norm against the f32 plain version, where the kernel run with
+    a planted fault (every kv_len one row short; the longest lane without
+    its last tile, or without its last split) must land beyond twice the
+    limit."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import SPLIT_ROWS, decode_attention_ref
 
     dev = torch.device("cuda")
     kv_len = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
@@ -516,6 +627,18 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
         errs[dtype] = _max_err(out, ref)
         check(_close(out, ref, dtype),
               f"decode_attention at serving shape Dh={dh} {dtype}: max err {errs[dtype]}")
+    ref32 = _decode_ref_f32(q, k, v, kv_len)
+    rel = _check_bf16_decode(out, ref32, kv_len, f"at serving shape Dh={dh} Hq/Hkv={hq // hkv}")
+    longest = int(kv_len.argmax())
+    faults = {"row": float(_lane_rel(decode_attention(q, k, v, (kv_len - 1).clamp_min(1)),
+                                     ref32).max())}
+    for name, rows in (("tile", DECODE_TILE_ROWS), ("split", SPLIT_ROWS)):
+        cut = kv_len.clone()
+        cut[longest] -= rows
+        faults[name] = float(_lane_rel(decode_attention(q, k, v, cut), ref32)[longest])
+    check(min(faults.values()) > 2 * BF16_DECODE_REL,
+          f"decode_attention Dh={dh}: planted faults move the output by {faults}, not all "
+          f"clearly beyond {BF16_DECODE_REL}")
     dmask = (torch.arange(s, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
     qt4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     lib = lambda device_only: _time_ms(  # noqa: E731
@@ -530,6 +653,7 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
         replaces="src/repro/kernels/decode_attention/kernel.py:77",
         max_abs_err=errs[torch.bfloat16], tol=TOL["torch.bfloat16"],
         max_abs_err_f32=errs[torch.float32],
+        lane_rel=rel, faults=faults,
         ms=_time_ms(lambda: decode_attention(q, k, v, kv_len), iters=50, flush=flush),
         device_ms=_time_ms(lambda: decode_attention(q, k, v, kv_len), iters=50, flush=flush,
                            device_only=True),
@@ -796,7 +920,7 @@ class _Probe:
         return all(bool(f) for f in self.finite)
 
 
-def _serve_once(model, params, ecfg, reqs, ctx, label):
+def _serve_once(model, params, ecfg, reqs, ctx, label, tag="serve"):
     import torch
 
     from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -823,11 +947,11 @@ def _serve_once(model, params, ecfg, reqs, ctx, label):
         check(r.phase.value == "done" and len(outs.get(r.rid, [])) == r.output_len,
               f"{label}: rid {r.rid} ended {r.phase.value} with "
               f"{len(outs.get(r.rid, []))}/{r.output_len} tokens")
-        say(f"[serve] {label} rid={r.rid} prompt={r.input_len} out={len(outs[r.rid])} "
+        say(f"[{tag}] {label} rid={r.rid} prompt={r.input_len} out={len(outs[r.rid])} "
             f"ttft={r.ttft():.4f}s tpot={r.mean_tpot():.5f}s e2e_ok={r.meets_e2e()} [{card}]")
     check(finite, f"{label}: a logit row was not finite")
     check(all(n > 0 for n in launches.values()), f"{label}: a kernel never launched: {launches}")
-    say(f"[serve] {label}: {len(reqs)} requests in {wall:.3f} s; prefill chunks "
+    say(f"[{tag}] {label}: {len(reqs)} requests in {wall:.3f} s; prefill chunks "
         f"{len(probe.chunk_s)} mean {1e3 * sum(probe.chunk_s) / len(probe.chunk_s):.2f} ms; "
         f"decode steps {len(probe.step_s)} mean {1e3 * sum(probe.step_s) / len(probe.step_s):.2f} ms; "
         f"launches {launches}; peak memory {peak:.2f} GiB; all logits finite [{card}]")
@@ -1314,6 +1438,7 @@ def phase_parity(ctx) -> None:
     torch.cuda.empty_cache()
     _ssm_parity(ctx, "mamba2-130m", None)
     _ssm_parity(ctx, "zamba2-2.7b", 12)
+    _families_parity(ctx)
 
 
 # the virtual time at which the parity phase's fleet loses replica 0: both
@@ -1440,6 +1565,24 @@ def _ssm_parity(ctx, arch, num_layers) -> None:
 
 
 # ------------------------------------------------------------------------ ssm
+def _decode_loop(model, params, tok, pos, cache, steps, finite):
+    """``steps`` greedy Model.decode steps, each ending in a sync; returns the
+    tokens (B, steps), the step times and the cache."""
+    import torch
+
+    out, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, tok[:, None], pos, cache)
+        tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        finite.append(torch.isfinite(logits).all())
+        out.append(tok)
+        pos = pos + 1
+    return torch.stack(out, 1), step_s, cache
+
+
 SSM_PROMPTS = (2048, 1536, 700, 130)  # right-padded to the longest, with valid_len
 SSM_MAX_LEN, SSM_STEPS = 2080, 32
 
@@ -1493,21 +1636,12 @@ def phase_ssm(ctx) -> None:
         cache = handoff(cfg, kv, model.init_cache(len(SSM_PROMPTS), SSM_MAX_LEN, device=dev))
         del kv
         finite = [torch.isfinite(logits).all()]
-        tok, pos, out, step_s = torch.argmax(logits, -1), valid.clone(), [], []
-        for _ in range(SSM_STEPS):
-            t0 = time.perf_counter()
-            logits, cache = model.decode(params, tok[:, None], pos, cache)
-            tok = torch.argmax(logits, -1)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            finite.append(torch.isfinite(logits).all())
-            out.append(tok)
-            pos = pos + 1
+        out, step_s, cache = _decode_loop(model, params, torch.argmax(logits, -1), valid.clone(),
+                                          cache, SSM_STEPS, finite)
         launched = {name: k.launches for name, k in kernels.items()}  # prefill and decode
         by_route = dict(ssd.route_launches)
         finite.append(torch.isfinite(cache["state"]).all())
         peak = torch.cuda.max_memory_allocated() / 2**30
-        out = torch.stack(out, 1)
         check(all(bool(f) for f in finite), f"[ssm] {arch}: a logit row or the state was not finite")
         check(tuple(out.shape) == (len(SSM_PROMPTS), SSM_STEPS), f"[ssm] {arch}: tokens {out.shape}")
         want = {"ssd_scan": cfg.num_layers}
@@ -1537,6 +1671,404 @@ def phase_ssm(ctx) -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------- families
+class _AttnProbe:
+    """While open, records the (head dim, query heads per KV head) of every
+    call the model's attention makes to the two kernels' wrappers, and
+    counts the calls that took a plain path (naive or blockwise) instead:
+    on the card only a window that binds sends a call there. The launch
+    counts stay the wrappers' own."""
+
+    KERNELS = ("prefill_attention", "decode_attention")
+
+    def __init__(self):
+        from repro_torch.models import layers
+
+        self._layers = layers
+        self._saved = {n: getattr(layers, n) for n in
+                       (*self.KERNELS, "naive_attention", "blockwise_attention")}
+        self.shapes = {n: set() for n in self.KERNELS}
+        self.plain = 0
+        for name in self.KERNELS:
+            setattr(layers, name, self._kernel(name, self._saved[name]))
+        for name in ("naive_attention", "blockwise_attention"):
+            setattr(layers, name, self._plain(self._saved[name]))
+
+    def _kernel(self, name, fn):
+        def wrapped(q, k, *args, **kw):
+            self.shapes[name].add((int(q.shape[-1]), int(q.shape[-2]) // int(k.shape[2])))
+            return fn(q, k, *args, **kw)
+        return wrapped
+
+    def _plain(self, fn):
+        def wrapped(*args, **kw):
+            self.plain += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    def close(self) -> None:
+        for name, fn in self._saved.items():
+            setattr(self._layers, name, fn)
+
+
+# the families phase's serve: 8 requests of 64-3584 prompt tokens (order
+# shuffled by the seed), 32 output tokens each, 50 ms apart, into decode lanes
+# of 4096 positions (gemma2-9b's window: its plain cache, ROADMAP C6)
+FAMILY_PROMPTS = (64, 256, 512, 1024, 1536, 2048, 3072, 3584)
+FAMILY_MAX_LEN = 4096
+# gemma2-9b through the model API: two prompts past the 4096-token window
+# (its local layers' window binds), handed into the ring of an 8192-row cache
+GEMMA_PROMPTS, GEMMA_RING_LEN, GEMMA_STEPS = (5120, 4400), 8192, 32
+# chameleon-34b (vlm) through the model API: prefill from embeddings
+VLM_BATCH, VLM_LEN, VLM_STEPS = 2, 1024, 16
+
+
+def _family_model(ctx, arch, num_layers=None):
+    """The config at full width (bf16, its own dtype), depth cut to
+    ``num_layers`` where given, and random weights from seed 0."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    _free()
+    cfg = get_config(arch)
+    full = cfg.num_layers
+    if num_layers:
+        cfg = cfg.replace(num_layers=num_layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=ctx["device"])
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    extra = []
+    if cfg.num_experts:
+        extra.append(f"{cfg.num_experts} experts top-{cfg.experts_per_token}, capacity factor "
+                     f"{cfg.capacity_factor}")
+    if cfg.sliding_window:
+        extra.append(f"window {cfg.sliding_window} on the even layers" if
+                     cfg.alternate_local_global else f"window {cfg.sliding_window}")
+    if cfg.attn_logit_softcap or cfg.final_logit_softcap:
+        extra.append(f"softcaps attention {cfg.attn_logit_softcap} final "
+                     f"{cfg.final_logit_softcap}")
+    if cfg.use_qk_norm:
+        extra.append("qk-norm")
+    if cfg.input_mode != "tokens":
+        extra.append(f"input {cfg.input_mode}")
+    depth = f"depth cut {full} -> {cfg.num_layers}" if num_layers else f"all {full} layers"
+    say(f"[families] {cfg.name} ({cfg.family}): {depth}, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {'; '.join(extra) + ', ' if extra else ''}{cfg.dtype}; "
+        f"{n / 1e9:.3f} B random parameters ({2 * n / 1e9:.1f} GB, seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s [{ctx['card']}]")
+    return cfg, model, params
+
+
+def _family_serve(ctx, cfg, model, params, lens, page_sizes, max_slots, max_len):
+    """ServeSession under kairos-urgency / kairos-slack at chunk 512, once per
+    page size: every request done with 32 tokens, every logit row finite,
+    both kernels launched (counted from zero) at the model's head dim and
+    query heads per KV head, and no call on a plain windowed path."""
+    from repro_torch.launch.smoke_workload import smoke_requests
+    from repro_torch.serving.engine import EngineConfig
+
+    want = (cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads)
+    for ps in page_sizes:
+        ecfg = EngineConfig(max_slots=max_slots, max_len=max_len, chunk_size=512,
+                            prefill_policy="kairos-urgency", decode_policy="kairos-slack",
+                            eos_token=-1, page_size=ps)
+        label = f"{cfg.name} {'paged (page_size=64)' if ps else 'slot'}"
+        probe = _AttnProbe()
+        try:
+            _serve_once(model, params, ecfg, smoke_requests(cfg.vocab_size, lens=lens), ctx,
+                        label, tag="families")
+        finally:
+            probe.close()
+        check(probe.shapes == {n: {want} for n in probe.KERNELS},
+              f"[families] {label}: kernel calls at (Dh, Hq/Hkv) {probe.shapes}, expected {want}")
+        check(probe.plain == 0, f"[families] {label}: {probe.plain} calls took a plain "
+              "windowed path (max_len <= window: none should)")
+        say(f"[families] {label}: every attention call on the kernels at Dh={want[0]}, "
+            f"Hq/Hkv={want[1]}; none on a plain path [{ctx['card']}]")
+        _free()
+
+
+def _gemma2_model_api(ctx, cfg, model, params) -> None:
+    """Model.prefill of 2 right-padded prompts past the window (the local
+    layers take the naive path, the global ones the prefill kernel), the
+    handoff into the ring of init_cache(2, 8192), and 32 greedy decode steps
+    whose every attention, ring included, runs on the decode kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import handoff
+
+    dev, card = ctx["device"], ctx["card"]
+    rng = np.random.default_rng(1)
+    toks = np.zeros((len(GEMMA_PROMPTS), max(GEMMA_PROMPTS)), np.int64)
+    for i, n in enumerate(GEMMA_PROMPTS):
+        toks[i, :n] = rng.integers(2, cfg.vocab_size, n)
+    inputs = torch.tensor(toks, device=dev)
+    valid = torch.tensor(GEMMA_PROMPTS, dtype=torch.int32, device=dev)
+    n_loc = cfg.num_layers // 2
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    probe = _AttnProbe()
+    try:
+        _attention_launches(zero=True)
+        t0 = time.perf_counter()
+        logits, kv = model.prefill(params, dict(inputs=inputs), valid_len=valid)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = _attention_launches()
+        plain_prefill, probe.plain = probe.plain, 0
+        cache = handoff(cfg, kv, model.init_cache(len(GEMMA_PROMPTS), GEMMA_RING_LEN, device=dev),
+                        valid_len=valid)
+        del kv
+        check(tuple(cache["k_local"].shape[:3]) == (n_loc, len(GEMMA_PROMPTS), cfg.sliding_window)
+              and cache["k"].shape[2] == GEMMA_RING_LEN,
+              f"[families] gemma2 ring: cache leaves {[tuple(v.shape) for v in cache.values()]}")
+        finite = [torch.isfinite(logits).all()]
+        _attention_launches(zero=True)
+        out, step_s, cache = _decode_loop(model, params, torch.argmax(logits, -1), valid.clone(),
+                                          cache, GEMMA_STEPS, finite)
+        dec = _attention_launches()
+    finally:
+        probe.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(bool(f) for f in finite), "[families] gemma2 model API: a logit row was not finite")
+    check(plain_prefill == n_loc and pre == {"prefill_attention": cfg.num_layers - n_loc,
+                                             "decode_attention": 0},
+          f"[families] gemma2 prefill: {plain_prefill} plain calls (expected {n_loc}: the local "
+          f"layers' window binds), launches {pre}")
+    check(probe.plain == 0 and dec == {"prefill_attention": 0,
+                                       "decode_attention": GEMMA_STEPS * cfg.num_layers},
+          f"[families] gemma2 ring decode: {probe.plain} plain calls, launches {dec}, expected "
+          f"{GEMMA_STEPS * cfg.num_layers} decode launches ({GEMMA_STEPS * n_loc} on the ring)")
+    say(f"[families] {cfg.name} model API: prefill of {len(GEMMA_PROMPTS)} prompts "
+        f"{list(GEMMA_PROMPTS)} (right-padded, valid_len) {1e3 * prefill_s:.2f} ms, {n_loc} local "
+        f"layers on the naive path (window {cfg.sliding_window} binds), {pre['prefill_attention']} "
+        f"prefill_attention launches; handoff into init_cache({len(GEMMA_PROMPTS)}, "
+        f"{GEMMA_RING_LEN}) = ring of {cfg.sliding_window} rows for {n_loc} layers; "
+        f"{GEMMA_STEPS} greedy decode steps mean {1e3 * sum(step_s) / len(step_s):.2f} ms (first "
+        f"{1e3 * step_s[0]:.2f} ms); decode_attention launches {dec['decode_attention']}, "
+        f"{GEMMA_STEPS * n_loc} of them on the ring; peak memory {peak:.2f} GiB; all logits "
+        f"finite (softcaps {cfg.attn_logit_softcap}/{cfg.final_logit_softcap}); request 1's "
+        f"first tokens {out[1, :8].tolist()} [{card}]")
+    del cache, logits
+
+
+def _vlm_model_api(ctx, cfg, model, params) -> None:
+    """Model.prefill from seeded embeddings, the handoff, 16 greedy decode
+    steps on tokens; both kernels at Hq/Hkv = 8."""
+    import torch
+
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.transformer import handoff
+
+    dev, card = ctx["device"], ctx["card"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    emb = torch.randn((VLM_BATCH, VLM_LEN, cfg.d_model), generator=gen, device=dev)
+    emb = emb.to(dtype_of(cfg.dtype))
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    probe = _AttnProbe()
+    try:
+        _attention_launches(zero=True)
+        t0 = time.perf_counter()
+        logits, kv = model.prefill(params, dict(inputs=emb))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = handoff(cfg, kv, model.init_cache(VLM_BATCH, VLM_LEN + VLM_STEPS, device=dev))
+        del kv
+        finite = [torch.isfinite(logits).all()]
+        pos = torch.full((VLM_BATCH,), VLM_LEN, dtype=torch.int32, device=dev)
+        out, step_s, cache = _decode_loop(model, params, torch.argmax(logits, -1), pos, cache,
+                                          VLM_STEPS, finite)
+        launches = _attention_launches()
+    finally:
+        probe.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = (cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads)
+    check(all(bool(f) for f in finite), "[families] vlm model API: a logit row was not finite")
+    check(launches == {"prefill_attention": cfg.num_layers,
+                       "decode_attention": VLM_STEPS * cfg.num_layers}
+          and probe.shapes == {n: {want} for n in probe.KERNELS} and probe.plain == 0,
+          f"[families] vlm model API: launches {launches}, (Dh, Hq/Hkv) {probe.shapes}, "
+          f"plain calls {probe.plain}")
+    say(f"[families] {cfg.name} model API: prefill from embeddings {tuple(emb.shape)} "
+        f"{1e3 * prefill_s:.2f} ms; handoff; {VLM_STEPS} greedy decode steps on tokens mean "
+        f"{1e3 * sum(step_s) / len(step_s):.2f} ms; launches {launches} at Dh={want[0]}, "
+        f"Hq/Hkv={want[1]}; peak memory {peak:.2f} GiB; all logits finite; first tokens "
+        f"{out[0, :8].tolist()} [{card}]")
+    del cache, logits
+
+
+def phase_families(ctx) -> None:
+    """The moe, vlm and alternating local/global families at full width in
+    bf16 (random weights from seed 0): gemma2-9b (all 42 layers) and
+    phi3.5-moe-42b-a6.6b (16 of 32 layers: all 32 take ~84 GB in bf16, more
+    than the card holds) served slot and paged; gemma2-9b through the model
+    API onto its ring cache; chameleon-34b (8 of 48 layers) from
+    embeddings and through a 4-request serve on tokens."""
+    cfg, model, params = _family_model(ctx, "gemma2-9b")
+    _family_serve(ctx, cfg, model, params, FAMILY_PROMPTS, (None, 64), 8, FAMILY_MAX_LEN)
+    _gemma2_model_api(ctx, cfg, model, params)
+    del params
+    cfg, model, params = _family_model(ctx, "phi3.5-moe-42b-a6.6b", 16)
+    _family_serve(ctx, cfg, model, params, FAMILY_PROMPTS, (None, 64), 8, FAMILY_MAX_LEN)
+    del params
+    cfg, model, params = _family_model(ctx, "chameleon-34b", 8)
+    _vlm_model_api(ctx, cfg, model, params)
+    _family_serve(ctx, cfg, model, params, (64, 512, 1024, 1536), (None,), 4, 2048)
+    del params
+    _free()
+
+
+def _families_parity(ctx) -> None:
+    """float32 at full width, cut depth: gemma2-9b at 4 layers (local,
+    global, local, global) and phi3.5-moe at 2, engine tokens slot and paged
+    equal reference_generate's; gemma2's ring (a 4500-token prompt prefilled,
+    handed into init_cache(1, 8192) and decoded 16 steps) gives the greedy
+    tokens of the same prompt decoded on a plain 8192-row cache, whose local
+    layers apply the window in the mask. phi3.5-moe runs at capacity factor
+    8, where nothing is dropped: with drops the tokens depend on which rows
+    share a dispatch group (a chunk's padding, batch-mates), in the
+    reference as in the port, so an engine and reference_generate need not
+    agree; the CPU tests hold the dropping regime against JAX."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import handoff
+    from repro_torch.serving.engine import DisaggServer, EngineConfig, reference_generate
+
+    dev, card = ctx["device"], ctx["card"]
+    for arch, depth, extra in (("gemma2-9b", 4, {}),
+                               ("phi3.5-moe-42b-a6.6b", 2, dict(capacity_factor=8.0))):
+        _free()
+        cfg = get_config(arch).replace(dtype="float32", num_layers=depth, **extra)
+        model = build_model(cfg)
+        params = model.init(seed=1, device=dev)
+        rng = np.random.default_rng(1)
+        prompts = [list(map(int, rng.integers(2, cfg.vocab_size, n))) for n in (17, 64, 130, 250)]
+        max_len, n_new = 512, 8
+        refs = [reference_generate(model, params, p, n_new, max_len, eos=-1) for p in prompts]
+        for ps in (None, 64):
+            ecfg = EngineConfig(max_slots=4, max_len=max_len, chunk_size=128, eos_token=-1,
+                                page_size=ps)
+            outs = DisaggServer(model, params, ecfg, device=dev).serve(
+                _requests(prompts, n_new, 0.01, 60.0, 5.0))
+            label = f"{arch} {'paged' if ps else 'slot'}"
+            for i, ref in enumerate(refs):
+                check(outs[i] == ref, f"parity {label}: rid {i} tokens {outs[i]} != {ref}")
+            say(f"[parity] {label}: tokens of {len(prompts)} requests equal "
+                f"reference_generate's ({cfg.dtype}, full width, depth cut "
+                f"{get_config(arch).num_layers} -> {depth}{', capacity factor 8' if extra else ''})"
+                f" [{card}]")
+        if cfg.alternate_local_global:
+            n = 4500
+            prompt = torch.tensor(rng.integers(2, cfg.vocab_size, n), device=dev)[None]
+            lg, kv = model.prefill(params, dict(inputs=prompt))
+            ring = handoff(cfg, kv, model.init_cache(1, GEMMA_RING_LEN, device=dev))
+            check("k_local" in ring, "parity gemma2: init_cache(1, 8192) is not the ring")
+            shape = (cfg.num_layers, 1, GEMMA_RING_LEN, cfg.num_kv_heads, cfg.resolved_head_dim)
+            plain = handoff(cfg, kv, dict(k=torch.zeros(shape, device=dev),
+                                          v=torch.zeros(shape, device=dev)))
+            del kv
+            seqs, logs = [], []
+            for cache in (ring, plain):
+                tok, seq, lgs = torch.argmax(lg, -1), [], []
+                for t in range(16):
+                    seq.append(int(tok))
+                    l, cache = model.decode(params, tok[:, None],
+                                            torch.tensor([n + t], device=dev), cache)
+                    lgs.append(l)
+                    tok = torch.argmax(l, -1)
+                seqs.append(seq)
+                logs.append(torch.cat(lgs))
+            err = _max_err(logs[0], logs[1])
+            check(seqs[0] == seqs[1], f"parity gemma2 ring: tokens {seqs[0]} != plain cache "
+                  f"under the window mask {seqs[1]}")
+            say(f"[parity] gemma2-9b ring: a {n}-token prompt prefilled, handed into the ring "
+                f"and decoded 16 steps gives the greedy tokens of the plain 8192-row cache under "
+                f"the window mask; logits max abs err {err:.3e} [{card}]")
+            del ring, plain
+        del params
+    _free()
+    _moe_dropping_check(ctx)
+
+
+MOE_CHUNK, MOE_SKEW = 512, 1.5  # tokens of one prefill chunk; logit added to expert 0
+# the card's moe_ffn against the CPU's, token by token: ||out_t - cpu_t|| over
+# the rms token norm. f32 rounding alone reads 3.2e-6 on an H100 (8.2e-7
+# against f64 on the CPU at a quarter of phi3.5's width); one choice routed or
+# dropped otherwise moves its token by the order of its whole norm.
+MOE_CARD_REL = 1e-5
+
+
+def _moe_dropping_check(ctx) -> None:
+    """phi3.5-moe's expert layer at full width in f32 and the config's
+    capacity factor 1.25, on a 512-token chunk skewed toward expert 0 (its
+    router logit raised by MOE_SKEW) so that experts overflow their 80 slots:
+    moe_ffn on the card equals the same call on CPU copies of the inputs
+    (routing, cumsum slot positions, k-major drops and the stable top-k sort
+    on CUDA against the CPU's), the expert choices are identical, choices
+    were dropped, and the drops change the output (it is not the dense
+    oracle's)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _route, init_moe_params, moe_ffn, moe_ffn_ref
+
+    dev, card = ctx["device"], ctx["card"]
+    _free()
+    cfg = get_config("phi3.5-moe-42b-a6.6b").replace(dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    params = init_moe_params(gen, cfg, torch.float32, dev)
+    r0 = params["router"][:, 0]
+    x = torch.randn((1, MOE_CHUNK, cfg.d_model), generator=gen, device=dev)
+    x = x + MOE_SKEW * r0 / r0.dot(r0)
+    t0 = time.perf_counter()
+    out = moe_ffn(x, params, cfg)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    oracle = moe_ffn_ref(x, params, cfg)
+    _, topi = _route(x.reshape(-1, cfg.d_model), params["router"], cfg.experts_per_token)
+    cpu = {n: t.cpu() for n, t in params.items()}
+    del params
+    t0 = time.perf_counter()
+    out_cpu = moe_ffn(x.cpu(), cpu, cfg)
+    cpu_s = time.perf_counter() - t0
+    _, topi_cpu = _route(x.cpu().reshape(-1, cfg.d_model), cpu["router"], cfg.experts_per_token)
+    del cpu
+    cap = cfg.moe_capacity(MOE_CHUNK)
+    per_expert = torch.bincount(topi_cpu.flatten(), minlength=cfg.num_experts)
+    dropped = int((per_expert - cap).clamp_min(0).sum())
+    diff = (out.cpu() - out_cpu).reshape(MOE_CHUNK, -1).norm(dim=1)
+    err = float(diff.max() / out_cpu.reshape(MOE_CHUNK, -1).norm(dim=1).pow(2).mean().sqrt())
+    check(torch.equal(topi.cpu(), topi_cpu), "moe dropping: expert choices on the card differ "
+          "from the CPU's")
+    check(dropped > 0, f"moe dropping: no choice dropped (per expert {per_expert.tolist()}, "
+          f"capacity {cap})")
+    check(err <= MOE_CARD_REL, f"moe dropping: moe_ffn on the card against the CPU's, worst "
+          f"token {err:.3e} of the rms token norm (limit {MOE_CARD_REL})")
+    drop_err = _max_err(out, oracle)
+    check(drop_err > 1e3 * MOE_CARD_REL * float(out.abs().max()),
+          f"moe dropping: the drops do not change the output (max abs {drop_err:.3e} from the "
+          f"dense oracle)")
+    say(f"[parity] phi3.5-moe expert layer (full width: d_model {cfg.d_model}, {cfg.num_experts} "
+        f"experts top-{cfg.experts_per_token}, d_ff {cfg.d_ff}; f32) on a {MOE_CHUNK}-token "
+        f"chunk skewed toward expert 0, capacity factor {cfg.capacity_factor} = {cap} slots: "
+        f"choices per expert {per_expert.tolist()}, {dropped} dropped; card equals CPU "
+        f"(worst token {err:.3e} of the rms token norm, limit {MOE_CARD_REL}; expert choices "
+        f"identical; card {1e3 * gpu_s:.1f} "
+        f"ms, CPU {1e3 * cpu_s:.1f} ms); drops move the output {drop_err:.3e} from the dense "
+        f"oracle [{card}]")
+    _free()
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1558,7 +2090,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         for phase in (phase_device, phase_build, phase_kernels, phase_serve, phase_fleet,
-                      phase_eval, phase_parity, phase_ssm):
+                      phase_eval, phase_parity, phase_ssm, phase_families):
             t0 = time.perf_counter()
             phase(ctx)
             name = phase.__name__.removeprefix("phase_")

@@ -84,6 +84,15 @@ class ModelConfig:
     def ssm_num_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
 
+    def moe_capacity(self, tokens_per_group: int) -> int:
+        import math
+
+        cap = math.ceil(
+            tokens_per_group * self.experts_per_token * self.capacity_factor / max(1, self.num_experts)
+        )
+        # round up to a multiple of 8 for tiling friendliness
+        return max(8, ((cap + 7) // 8) * 8)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

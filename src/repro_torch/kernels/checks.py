@@ -7,7 +7,7 @@ from typing import Sequence
 import torch
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128)  # of the attention kernels
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # of the attention kernels
 
 
 def require(cond: bool, msg: str) -> None:

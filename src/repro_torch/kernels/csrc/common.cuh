@@ -86,6 +86,7 @@ int with_head_dim(int Dh, F&& f) {
     case 64: return f(std::integral_constant<int, 64>{});
     case 80: return f(std::integral_constant<int, 80>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }

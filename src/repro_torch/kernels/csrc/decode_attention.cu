@@ -25,7 +25,8 @@
 //    of the first version). Inside a split, tiles of BK = 32 rows arrive in
 //    their own dtype, unconverted, by 16-byte cp.async into a ring of
 //    STAGES = 4 slots (commit groups): three tiles load while one
-//    computes. Rows past kv_len in the last tile are zero-filled, never
+//    computes. In f32 at Dh = 256 four slots would take 282 KB of shared
+//    memory, so that kernel keeps three (216 KB; `stages`). Rows past kv_len in the last tile are zero-filled, never
 //    read. Products are f32 FMAs on operands read from shared memory as
 //    packed pairs (bf16x2 or float2) or 16-byte vectors. Not mma.sync: the
 //    product is 2 * qpk operations per element, which the FMA units do
@@ -57,7 +58,6 @@ namespace {
 
 constexpr int SPLIT = 256;   // KV rows per split (ops.py's SPLIT_ROWS)
 constexpr int BK = 32;       // KV rows per tile
-constexpr int STAGES = 4;    // tiles in the ring
 constexpr int NT = 256;      // threads per block
 constexpr int NW = NT / 32;  // warps per block
 constexpr int QMAX = 16;     // most query heads per KV head
@@ -77,10 +77,16 @@ struct Tile {
   static_assert(CPR % 2 == 0, "two threads share a row's chunks");
 };
 
+// tiles in the ring: 4, or 3 where a row takes more than 512 bytes (f32 at Dh = 256)
+template <typename T, int DH>
+__host__ __device__ constexpr int stages() { return sizeof(T) * DH > 512 ? 3 : 4; }
+
 template <typename T, int DH>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (QMAX * DH + QMAX * LDP) + sizeof(T) * STAGES * 2 * Tile<T, DH>::ELEMS;
+  return sizeof(float) * (QMAX * DH + QMAX * LDP) +
+         sizeof(T) * stages<T, DH>() * 2 * Tile<T, DH>::ELEMS;
 }
+static_assert(smem_bytes<float, 256>() <= 227 * 1024, "the ring fits the 227 KB a block may hold");
 
 __device__ __forceinline__ float2 to_f32x2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ float2 to_f32x2(const __nv_bfloat16* p) {
@@ -93,6 +99,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
              const int* __restrict__ kv_len, float* __restrict__ part_o,
              float* __restrict__ part_ml, int S, int Hq, int Hkv, float scale, float cap) {
   using L = Tile<T, DH>;
+  constexpr int STAGES = stages<T, DH>();
   constexpr int NPAIR = DH / 2;                          // column pairs of a head
   constexpr int NE = (QMAX * NPAIR + NT - 1) / NT;       // accumulator pairs per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];

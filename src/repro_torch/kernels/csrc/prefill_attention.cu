@@ -26,9 +26,12 @@
 // shared memory read MN-major through the descriptor's transpose bit. The
 // online softmax (running max m, sum l, rescale of O) runs on the
 // accumulator fragments in registers, in base 2 (exp2f of scores scaled by
-// log2 e). K/V tiles of BK = 64 rows arrive in bf16, unconverted, by
-// 16-byte cp.async into a ring of STAGES = 4 slots (commit groups): two
-// tiles load while two are read. Every thread issues copies; the wgmma
+// log2 e). K/V tiles of BK = 64 rows (32 at Dh = 256, `bk_of`) arrive in
+// bf16, unconverted, by 16-byte cp.async into a ring of STAGES = 4 slots
+// (commit groups): two tiles load while two are read. At Dh = 256
+// (gemma2) BK = 64 would need 320 KB of shared memory; BK = 32 needs
+// 192 KB, and the O accumulator of 128 f32 registers per thread takes the
+// m64n256k16 product, with S at m64n32k16. Every thread issues copies; the wgmma
 // reads follow a proxy fence and one block barrier per tile. Inside a
 // warpgroup, step t issues S of tile t + 1 and then P.V of tile t, waits
 // for S only, and runs tile t + 1's softmax while the tensor cores run
@@ -250,16 +253,20 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 constexpr int WG = 2;         // consumer warpgroups, 64 query rows each
 constexpr int BQ = 64 * WG;   // query rows per block
-constexpr int BK = 64;        // KV rows per tile
 constexpr int STAGES = 4;     // K/V tiles in the ring
 constexpr int NT = 128 * WG;  // threads per block
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(STAGES >= 3, "a step reads two tiles while the next one loads");
 
+// KV rows per tile: 64, or 32 where 64 would not fit the ring in shared memory
+template <int DH>
+__host__ __device__ constexpr int bk_of() { return DH > 128 ? 32 : 64; }
+
 template <int DH>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (BQ * DH + STAGES * 2 * BK * DH);
+  return sizeof(bf16) * (BQ * DH + STAGES * 2 * bk_of<DH>() * DH);
 }
+static_assert(smem_bytes<256>() <= 227 * 1024, "the ring fits the 227 KB a block may hold");
 
 // Issue the copy of a ROWS x DH tile whose row r starts at row(r) into the
 // core-matrix layout of sm90.cuh at dst; rows >= n_valid are zero-filled
@@ -281,6 +288,7 @@ prefill_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ q_pos,
                         const int* __restrict__ kv_len, bf16* __restrict__ out, int Sq, int Skv,
                         int Hq, int Hkv, float scale, float cap) {
+  constexpr int BK = bk_of<DH>();
   constexpr int TILE = BK * DH;                // elements of one K or V tile
   constexpr uint32_t GROUP = DH / 8 * 128;     // bytes between 8-row groups of a tile
   constexpr int NS = BK / 8, NO = DH / 8;      // 8-column blocks of S and of O
@@ -549,7 +557,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
 
 // q (B, Sq, Hq, Dh), k/v (B, Skv, Hkv, Dh), q_pos (B, Sq) int32, kv_len (B,)
 // int32, out (B, Sq, Hq, Dh); all contiguous, on the stream's device; Dh in
-// {16, 32, 64, 80, 128}. Each returns the launch's cudaError_t.
+// {16, 32, 64, 80, 128, 256}. Each returns the launch's cudaError_t.
 extern "C" int repro_prefill_attention_f32(const void* q, const void* k, const void* v,
                                            const void* q_pos, const void* kv_len, void* out,
                                            int B, int Sq, int Skv, int Hq, int Hkv, int Dh,

@@ -7,7 +7,18 @@ registry-driven scheduling (port of ``repro.launch.serve``).
 
 ``--device`` defaults to ``cuda`` and fails without a card (``--device cpu``
 runs the plain path on the CPU); ``--dtype`` defaults to the config's own.
-Weights are random, drawn from ``--seed``.
+Weights are random, drawn from ``--seed``. Every attention family serves
+through ``--arch`` (dense, moe, vlm on tokens):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b-smoke
+
+(phi3.5-moe-42b-a6.6b itself takes about 84 GB in bf16, more than one
+80 GB card holds.)
+
+The engine decodes into lanes of 128 positions, so an alternating
+local/global model with a window under 128 (``gemma2-9b-smoke``: 32) is
+refused (ROADMAP C6).
 """
 from __future__ import annotations
 

@@ -12,13 +12,14 @@ from repro_torch.core.request import Request, SLOSpec
 from repro_torch.serving.engine import EngineConfig
 
 
-def smoke_requests(vocab_size: int, seed: int = 0):
-    """8 requests: a long-tail mix of prompts of 64-1536 tokens (order
-    shuffled by ``seed``), 32 output tokens each, arrivals 50 ms apart,
-    SLOs of TTFT 2 s and TPOT 0.1 s (placeholders: no limits are chosen
-    yet)."""
+def smoke_requests(vocab_size: int, seed: int = 0,
+                   lens=(64, 96, 160, 256, 384, 640, 1024, 1536)):
+    """One request per prompt length in ``lens`` (by default a long-tail mix
+    of 64-1536 tokens), order shuffled by ``seed``, 32 output tokens each,
+    arrivals 50 ms apart, SLOs of TTFT 2 s and TPOT 0.1 s (placeholders: no
+    limits are chosen yet)."""
     rng = np.random.default_rng(seed)
-    lens = rng.permutation([64, 96, 160, 256, 384, 640, 1024, 1536])
+    lens = rng.permutation(lens)
     return [
         (Request(rid=i, arrival=0.05 * i, input_len=int(m), output_len=32,
                  slo=SLOSpec(ttft=2.0, tpot=0.1)),

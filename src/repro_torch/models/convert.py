@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import hybrid_blocks, check_supported
+from repro_torch.models.transformer import ATTN_FAMILIES, check_supported, hybrid_blocks
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -43,14 +43,27 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, device: DeviceL
         want.add("shared_attn")
     if set(params) != want:
         raise ValueError(f"parameter tree has keys {sorted(params)}, expected {sorted(want)}")
-    # the layer axes: (L,) for dense and ssm, (super-blocks, per block) for hybrid
-    if cfg.family == "dense":
-        lead, expect = params["layers"]["attn"]["wq"].shape[:1], (cfg.num_layers,)
+    # the layer axes: (L,) for the attention families and ssm, (super-blocks,
+    # per block) for hybrid; every stacked leaf of the layers carries them
+    layers = params["layers"]
+    if cfg.family in ATTN_FAMILIES:
+        ffn = "moe" if cfg.family == "moe" else "mlp"
+        if set(layers) != {"attn", ffn, "pre_attn_norm", "pre_mlp_norm"}:
+            raise ValueError(f"layer tree has keys {sorted(layers)}, config {cfg.name} is "
+                             f"{cfg.family!r} (expected attn, {ffn} and the two norms)")
+        expect = (cfg.num_layers,)
     elif cfg.family == "ssm":
-        lead, expect = params["layers"]["ssm"]["in_proj"].shape[:1], (cfg.num_layers,)
+        expect = (cfg.num_layers,)
     else:
-        lead, expect = params["layers"]["ssm"]["in_proj"].shape[:2], hybrid_blocks(cfg)
-    if tuple(lead) != tuple(expect):
-        raise ValueError(f"parameter tree has layer axes {tuple(lead)}, config {cfg.name} "
-                         f"has {tuple(expect)}")
+        expect = hybrid_blocks(cfg)
+    for leaf in _leaves(layers):
+        lead = tuple(leaf.shape[: len(expect)])
+        if lead != tuple(expect):
+            raise ValueError(f"parameter tree has layer axes {lead}, config {cfg.name} "
+                             f"has {tuple(expect)}")
     return params
+
+
+def _leaves(tree: Dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))

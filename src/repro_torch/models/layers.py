@@ -13,9 +13,17 @@ Conventions, as in the JAX package
 Attention dispatch: on the card the hand-written CUDA kernels are the path
 (Sq > 1 goes to the prefill kernel, Sq == 1 to the decode kernel). On the
 CPU, ``impl="pallas"`` takes the kernels' wrappers (which run their plain
-versions on CPU tensors) and ``"auto"``/``"naive"`` take `naive_attention`.
-Sliding windows, packed segments, non-causal attention and the blockwise
-path are outside this slice of the port and raise NotImplementedError.
+versions on CPU tensors) and ``"auto"``/``"naive"`` take the plain paths:
+`naive_attention` below ``_NAIVE_ATTN_LIMIT`` query x KV rows,
+`blockwise_attention` above it (``impl="blockwise"`` forces it anywhere).
+
+A sliding window can bind only when the KV length it is applied to exceeds
+it (every ``kv_pos < Skv <= window`` satisfies ``kv_pos > q_pos - window``
+for the queries of a cache of Skv rows), so a window that cannot bind is
+dropped and the call takes the kernels; one that binds takes the plain
+paths with the window in the mask, as every windowed call does in the
+reference. The choice reads shapes only. Packed segments and non-causal
+attention are outside the ported slices and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.prefill_attention.ops import prefill_attention
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
+_NAIVE_ATTN_LIMIT = 8192 * 8192  # Sq x Skv above which the plain path goes blockwise
+_KV_BLOCK = 1024  # KV rows per step of blockwise_attention
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -92,10 +102,14 @@ def attention_mask(
     q_pos: torch.Tensor,  # (B, Sq)
     kv_len: int,
     kv_valid: Optional[torch.Tensor] = None,  # (B,) valid kv length
+    window: int = 0,  # 0 = no window
 ) -> torch.Tensor:
-    """Causal boolean mask (B, Sq, Skv); True = attend."""
+    """Causal boolean mask (B, Sq, Skv), optionally windowed; True = attend."""
     kv_pos = torch.arange(kv_len, device=q_pos.device)[None, None, :]
-    mask = kv_pos <= q_pos[:, :, None]
+    qp = q_pos[:, :, None]
+    mask = kv_pos <= qp
+    if window:
+        mask = mask & (kv_pos > qp - window)
     if kv_valid is not None:
         mask = mask & (kv_pos < kv_valid[:, None, None])
     return mask
@@ -124,6 +138,55 @@ def naive_attention(
     return out.reshape(b, sq, hq, d)
 
 
+def blockwise_attention(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Skv, Hkv, D)
+    v: torch.Tensor,
+    q_pos: torch.Tensor,  # (B, Sq)
+    kv_valid: Optional[torch.Tensor],
+    window: int,
+    logit_cap: float,
+    scale: Optional[float] = None,
+    kv_block: int = _KV_BLOCK,
+) -> torch.Tensor:
+    """Flash-style exact causal attention: a loop over KV blocks with an
+    online softmax, never materialising (Sq, Skv); the plain path for long
+    inputs."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    rep = hq // hkv
+    kv_valid = kv_valid if kv_valid is not None else torch.full(
+        (b,), skv, dtype=torch.int32, device=q.device)
+    qf = q.float()
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hq, sq), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    for j0 in range(0, skv, kv_block):
+        # the reference pads the last block with zeros, which the mask hides
+        n = min(kv_block, skv - j0)
+        kblk = F.pad(k[:, j0 : j0 + n], (0, 0, 0, 0, 0, kv_block - n))
+        vblk = F.pad(v[:, j0 : j0 + n], (0, 0, 0, 0, 0, kv_block - n))
+        kblk = kblk.repeat_interleave(rep, dim=2).float()
+        vblk = vblk.repeat_interleave(rep, dim=2)
+        kv_pos = j0 + torch.arange(kv_block, device=q.device)
+        scores = softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kblk) * scale, logit_cap)
+        msk = (kv_pos[None, None, :] < kv_valid[:, None, None]) & (
+            kv_pos[None, None, :] <= q_pos[:, :, None])
+        if window:
+            msk = msk & (kv_pos[None, None, :] > q_pos[:, :, None] - window)
+        scores = torch.where(msk[:, None], scores, _NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vblk.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)  # (B, Sq, Hq, D)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -131,7 +194,7 @@ def attention(
     q_pos: torch.Tensor,
     kv_valid: Optional[torch.Tensor] = None,
     *,
-    window=0,
+    window: int = 0,
     causal: bool = True,
     logit_cap: float = 0.0,
     scale: Optional[float] = None,
@@ -139,18 +202,18 @@ def attention(
     kv_seg: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Causal GQA attention: the CUDA kernels on the card, the plain path or
-    the kernels' plain versions on the CPU (see the module docstring)."""
-    if window or not causal or q_seg is not None or kv_seg is not None:
-        raise NotImplementedError(
-            "sliding windows, non-causal attention and packed segments are not "
-            "ported yet"
-        )
-    if impl not in ("auto", "naive", "pallas"):
+    """Causal GQA attention, optionally windowed: the CUDA kernels on the
+    card, the plain paths or the kernels' plain versions on the CPU (see
+    the module docstring)."""
+    if not causal or q_seg is not None or kv_seg is not None:
+        raise NotImplementedError("non-causal attention and packed segments are not ported yet")
+    if impl not in ("auto", "naive", "pallas", "blockwise"):
         raise NotImplementedError(f"attention impl {impl!r} is not ported yet")
     b, sq = q.shape[0], q.shape[1]
     skv = k.shape[1]
-    if q.is_cuda or impl == "pallas":
+    if window and skv <= window:
+        window = 0  # cannot bind
+    if not window and impl != "blockwise" and (q.is_cuda or impl == "pallas"):
         kv_len = (
             kv_valid if kv_valid is not None
             else torch.full((b,), skv, dtype=torch.int32, device=q.device)
@@ -164,7 +227,9 @@ def attention(
             q.contiguous(), k, v, q_pos.to(torch.int32).contiguous(), kv_len,
             scale=scale, logit_cap=logit_cap,
         )
-    mask = attention_mask(q_pos, skv, kv_valid)
+    if impl == "blockwise" or (impl in ("auto", "pallas") and sq * skv > _NAIVE_ATTN_LIMIT):
+        return blockwise_attention(q, k, v, q_pos, kv_valid, window, logit_cap, scale)
+    mask = attention_mask(q_pos, skv, kv_valid, window)
     return naive_attention(q, k, v, mask, logit_cap, scale)
 
 

@@ -1,11 +1,13 @@
-"""Model API over the dense, ssm and hybrid decoders (port of
+"""Model API over the dense, moe, vlm, ssm and hybrid decoders (port of
 ``repro.models.model``).
 
   model = build_model(cfg)
   params = model.init(seed, device="cuda")
-  logits, kv = model.prefill(params, batch)
+  logits, kv = model.prefill(params, batch)    # batch["inputs"]: tokens, or
+                                               # embeddings for input_mode="embeddings"
   logits, cache = model.decode(params, tokens, positions, cache)
-  cache = model.init_cache(batch, max_len, device="cuda")   # zeros, allocated
+  cache = model.init_cache(batch, max_len, device="cuda")   # zeros, allocated; the ring
+                                                          # cache where cache_shapes picks it
   spec  = cache_struct(cfg, batch, max_len)                 # meta tensors only
 """
 from __future__ import annotations

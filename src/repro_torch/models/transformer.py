@@ -1,5 +1,5 @@
-"""Decoder trunk in PyTorch: dense, ssm and hybrid families (port of
-``repro.models.transformer``).
+"""Decoder trunk in PyTorch: dense, moe, vlm, ssm and hybrid families (port
+of ``repro.models.transformer``).
 
 Three entry points (shape-polymorphic over batch):
   prefill_step(params, inputs, cfg, valid_len)            -> (last_logits (B,V), kv)
@@ -10,16 +10,23 @@ Parameters are the JAX pytree as a dict of tensors: per-layer weights are
 stacked on a leading layer axis ``(L, ...)`` (hybrid: ``(ns, per, ...)``
 Mamba2 layers plus one ``shared_attn`` dense layer) and the trunk is a
 Python loop over it (``jax.lax.scan`` in the reference). Caches are
-``{"k", "v"}`` of shape ``(L, B, max_len, Hkv, Dh)`` for the dense family,
-``{"conv", "state"}`` stacked ``(L, ...)`` for ssm, and all four for
-hybrid (``conv``/``state`` stacked ``(ns, per, ...)``, ``k``/``v``
-``(ns, ...)``). Unlike the reference, which returns new arrays, the decode
-and chunk entry points write into the cache they are given, in place, and
-return that same dict.
+``{"k", "v"}`` of shape ``(L, B, max_len, Hkv, Dh)`` for the attention
+families (dense, moe, vlm), ``{"conv", "state"}`` stacked ``(L, ...)`` for
+ssm, and all four for hybrid (``conv``/``state`` stacked ``(ns, per,
+...)``, ``k``/``v`` ``(ns, ...)``). Alternating local/global models
+(gemma2: even layers local, window ``sliding_window``) whose cache is
+longer than the window get the reference's ring cache instead: ``k``/``v``
+of the L/2 global layers at ``max_len`` rows and ``k_local``/``v_local`` of
+the L/2 local layers at ``sliding_window`` rows, slot ``pos mod W``. Unlike
+the reference, which returns new arrays, the decode and chunk entry points
+write into the cache they are given, in place, and return that same dict.
 
-Chunked prefill is for the dense family only, as in the reference (the SSM
-prefill carries its state through ``ssm_forward``). The moe, encdec and vlm
-families, sliding windows, alternating local/global layers and ngroups > 1
+The moe family swaps each layer's MLP for `moe.moe_ffn`; the vlm family
+prefills from ``(B, S, d_model)`` embeddings under ``input_mode=
+"embeddings"`` (decode and chunked prefill stay on tokens, as in the
+reference). Chunked prefill is for the attention families only, as in the
+reference (the SSM prefill carries its state through ``ssm_forward``), and
+never into a ring cache (ROADMAP C6). The encdec family and ngroups > 1
 are outside the ported slices and raise NotImplementedError.
 """
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.moe import init_moe_params, moe_ffn
 from repro_torch.models.layers import (
     attention,
     dense_init,
@@ -43,11 +51,15 @@ from repro_torch.models.layers import (
 )
 
 
+ATTN_FAMILIES = ("dense", "moe", "vlm")
+_GLOBAL_WINDOW = 1 << 30  # the reference's "no window" of gemma2's global layers
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configurations the port does not serve yet."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in (*ATTN_FAMILIES, "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, ssm and hybrid only)"
+            f"family {cfg.family!r} is not ported yet (dense, moe, vlm, ssm and hybrid only)"
         )
     if cfg.family in ("ssm", "hybrid") and cfg.ssm_ngroups != 1:
         raise NotImplementedError(f"{cfg.name}: ssm_ngroups={cfg.ssm_ngroups} is not ported "
@@ -55,10 +67,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "hybrid" and cfg.num_layers % cfg.hybrid_period:
         raise ValueError(f"{cfg.name}: hybrid depth {cfg.num_layers} is not a multiple of "
                          f"the period {cfg.hybrid_period}")
-    if cfg.sliding_window or cfg.alternate_local_global:
-        raise NotImplementedError(f"{cfg.name}: sliding-window attention is not ported yet")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"{cfg.name}: input_mode {cfg.input_mode!r} is not ported yet")
 
 
 # ----------------------------------------------------------------------------
@@ -74,9 +82,9 @@ def _stacked(gen, n: int, shape, dtype, device) -> torch.Tensor:
     return out
 
 
-def _dense_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
+def _attn_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    hq, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
     attn = dict(
         wq=_stacked(gen, n, (d, hq * hd), dtype, dev),
         wk=_stacked(gen, n, (d, hkv * hd), dtype, dev),
@@ -88,14 +96,33 @@ def _dense_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
         attn["k_norm"] = torch.zeros((n, hd), dtype=dtype, device=dev)
     return dict(
         attn=attn,
+        pre_attn_norm=torch.zeros((n, d), dtype=dtype, device=dev),
+        pre_mlp_norm=torch.zeros((n, d), dtype=dtype, device=dev),
+    )
+
+
+def _dense_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return dict(
+        **_attn_layers(gen, cfg, n, dtype, dev),
         mlp=dict(
             w_gate=_stacked(gen, n, (d, f), dtype, dev),
             w_up=_stacked(gen, n, (d, f), dtype, dev),
             w_down=_stacked(gen, n, (f, d), dtype, dev),
         ),
-        pre_attn_norm=torch.zeros((n, d), dtype=dtype, device=dev),
-        pre_mlp_norm=torch.zeros((n, d), dtype=dtype, device=dev),
     )
+
+
+def _moe_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
+    """(n, ...) attention + MoE layers, the experts drawn one layer at a time."""
+    first = init_moe_params(gen, cfg, dtype, dev)
+    moe = {k: torch.empty((n, *v.shape), dtype=v.dtype, device=dev) for k, v in first.items()}
+    for i in range(n):
+        layer = first if i == 0 else init_moe_params(gen, cfg, dtype, dev)
+        for k, v in layer.items():
+            moe[k][i] = v
+        del layer
+    return dict(**_attn_layers(gen, cfg, n, dtype, dev), moe=moe)
 
 
 def _ssm_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
@@ -128,8 +155,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda") ->
     )
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype, dev)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         params["layers"] = _dense_layers(gen, cfg, cfg.num_layers, dtype, dev)
+    elif cfg.family == "moe":
+        params["layers"] = _moe_layers(gen, cfg, cfg.num_layers, dtype, dev)
     elif cfg.family == "ssm":
         params["layers"] = _ssm_layers(gen, cfg, cfg.num_layers, dtype, dev)
     else:  # hybrid
@@ -173,6 +202,7 @@ def attn_block(
     positions: torch.Tensor,  # (B, S)
     cfg: ModelConfig,
     *,
+    window: int = 0,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B,M,Hkv,Dh) x2
     kv_valid: Optional[torch.Tensor] = None,  # (B,)
     starts: Optional[Sequence[int]] = None,  # host copy of positions[:, 0], S > 1
@@ -188,7 +218,7 @@ def attn_block(
     if kv_cache is None:
         out = attention(
             q, k, v, positions, kv_valid,
-            logit_cap=cfg.attn_logit_softcap, impl=cfg.attn_impl,
+            window=window, logit_cap=cfg.attn_logit_softcap, impl=cfg.attn_impl,
         )
         new_kv = (k, v)
     else:
@@ -214,7 +244,7 @@ def attn_block(
                     cv[i, st : st + n] = v[i, :n]
         out = attention(
             q, ck, cv, positions, kv_valid,
-            logit_cap=cfg.attn_logit_softcap, impl=cfg.attn_impl,
+            window=window, logit_cap=cfg.attn_logit_softcap, impl=cfg.attn_impl,
         )
         new_kv = (ck, cv)
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
@@ -223,8 +253,25 @@ def attn_block(
 
 def _ffn(layer: Dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     hn = rms_norm(h, layer["pre_mlp_norm"], cfg.norm_eps)
+    if "moe" in layer:  # the moe family's layers (the hybrid's shared block has an mlp)
+        return moe_ffn(hn, layer["moe"], cfg)
     m = layer["mlp"]
     return gated_mlp(hn, m["w_gate"], m["w_up"], m["w_down"], cfg.act)
+
+
+def _layer_window(cfg: ModelConfig, i: int) -> int:
+    """Layer i's window (0 = none). Alternating local/global (gemma2): the
+    even layers are local, the odd ones take the reference's global
+    sentinel, which `attention` drops as a window that cannot bind."""
+    if cfg.alternate_local_global and i % 2:
+        return _GLOBAL_WINDOW
+    return cfg.sliding_window
+
+
+def _embed_inputs(params: Dict, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.input_mode == "embeddings":
+        return inputs.to(dtype_of(cfg.dtype))
+    return params["embed"][inputs]
 
 
 def logits_from_hidden(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -275,31 +322,33 @@ def _stack_caches(caches) -> Dict:
 
 def prefill_step(
     params: Dict,
-    inputs: torch.Tensor,  # (B, S) tokens
+    inputs: torch.Tensor,  # (B, S) tokens or (B, S, d_model) embeddings
     cfg: ModelConfig,
     valid_len: Optional[torch.Tensor] = None,
 ):
-    """One-shot prefill: returns (last-token logits (B, V), kv), the tree a
-    disaggregated deployment ships to the decode instance, as the
-    reference's:
-      dense:  (k, v) stacked ``(L, B, S, Hkv, Dh)``
+    """One-shot prefill from tokens ``(B, S)`` (or embeddings ``(B, S,
+    d_model)`` under ``input_mode="embeddings"``): returns (last-token
+    logits (B, V), kv), the tree a disaggregated deployment ships to the
+    decode instance, as the reference's:
+      attention families: (k, v) stacked ``(L, B, S, Hkv, Dh)``
       ssm:    dict(conv (L, B, W-1, Cch), state (L, B, H, P, N))
       hybrid: (dict(conv, state) stacked ``(ns, per, ...)``,
                (k, v) stacked ``(ns, B, S, Hkv, Dh)``)"""
     check_supported(cfg)
-    x = params["embed"][inputs]
-    b, s = inputs.shape
+    x = _embed_inputs(params, inputs, cfg)
+    b, s = x.shape[0], x.shape[1]
     dev = x.device
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     if valid_len is None:
         valid_len = torch.full((b,), s, dtype=torch.int32, device=dev)
     valid_len = valid_len.to(device=dev, dtype=torch.int32)
     layers = params["layers"]
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         ks, vs = [], []
         for i in range(cfg.num_layers):
             x, (k, v) = _layer_step(
-                layer_params(layers, i), x, positions, cfg, kv_valid=valid_len
+                layer_params(layers, i), x, positions, cfg,
+                window=_layer_window(cfg, i), kv_valid=valid_len,
             )
             ks.append(k)
             vs.append(v)
@@ -342,10 +391,12 @@ def decode_step(
     pos2 = positions[:, None]
     kv_valid = positions + 1
     layers = params["layers"]
-    if cfg.family == "dense":
+    if "k_local" in cache:
+        x = _decode_windowed(params, x, positions, cfg, cache)
+    elif cfg.family in ATTN_FAMILIES:
         for i in range(cfg.num_layers):
             x, _ = _layer_step(
-                layer_params(layers, i), x, pos2, cfg,
+                layer_params(layers, i), x, pos2, cfg, window=_layer_window(cfg, i),
                 kv_cache=(cache["k"][i], cache["v"][i]), kv_valid=kv_valid,
             )
     elif cfg.family == "ssm":
@@ -379,12 +430,17 @@ def chunk_prefill_step(
     valid tokens must fit the cache: ``start + valid <= max_len``.
 
     ``start`` and ``valid`` are read on the host (pass CPU tensors or ints
-    to keep the step free of device syncs). Dense family only, as in the
-    reference."""
+    to keep the step free of device syncs). Attention families only, as in
+    the reference, and never into a ring cache: the reference's chunk
+    pairs its L layers with the ring's L/2 rows and fails (ROADMAP C6)."""
     check_supported(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in ATTN_FAMILIES:
         raise NotImplementedError(f"chunked prefill is for attention families; {cfg.name} is "
                                   f"{cfg.family!r} (use prefill_step)")
+    if "k_local" in cache:
+        raise ValueError(f"{cfg.name}: chunked prefill into a ring cache (k_local/v_local of "
+                         f"{cfg.sliding_window} rows) is not supported; keep max_len <= "
+                         "sliding_window (ROADMAP C6)")
     x = params["embed"][tokens]
     b, c = tokens.shape
     dev = x.device
@@ -400,6 +456,7 @@ def chunk_prefill_step(
     for i in range(cfg.num_layers):
         x, _ = _layer_step(
             layer_params(params["layers"], i), x, positions, cfg,
+            window=_layer_window(cfg, i),
             kv_cache=(cache["k"][i], cache["v"][i]), kv_valid=kv_valid, starts=starts,
         )
     last_idx = torch.tensor([max(n - 1, 0) for n in valids], device=dev)
@@ -408,13 +465,87 @@ def chunk_prefill_step(
 
 
 # ----------------------------------------------------------------------------
+# Ring cache of the local layers (alternating local/global)
+# ----------------------------------------------------------------------------
+
+def _decode_windowed(params: Dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                     cache: Dict) -> torch.Tensor:
+    """The layers of a decode step over a ring cache, as (local, global)
+    pairs. The ring keeps the last W = sliding_window positions: slot j
+    holds absolute position a_j = pos - ((pos - j) mod W), which the
+    reference masks with a_j >= 0. That is exactly slot j < min(pos + 1, W),
+    and RoPE is applied before the write while the softmax does not depend
+    on the order of the rows, so the local layer is plain causal attention
+    over the ring with kv_valid = min(pos + 1, W): the decode kernel on the
+    card. Returns the hidden state; the cache is written in place."""
+    b = x.shape[0]
+    w = cfg.sliding_window
+    pos2 = positions[:, None]
+    kv_valid = positions + 1
+    ring_valid = torch.clamp(kv_valid, max=w)
+    rows = torch.arange(b, device=x.device)
+    slot = positions.long() % w
+    layers = params["layers"]
+    for i in range(cfg.num_layers // 2):
+        loc, glo = layer_params(layers, 2 * i), layer_params(layers, 2 * i + 1)
+        # local layer: the ring
+        q, k, v = _attn_qkv(loc["attn"], rms_norm(x, loc["pre_attn_norm"], cfg.norm_eps),
+                            pos2, cfg)
+        ck, cv = cache["k_local"][i], cache["v_local"][i]
+        ck[rows, slot] = k[:, 0]
+        cv[rows, slot] = v[:, 0]
+        a = attention(q, ck, cv, pos2, ring_valid, logit_cap=cfg.attn_logit_softcap,
+                      impl=cfg.attn_impl)
+        x = x + a.reshape(b, 1, -1) @ loc["attn"]["wo"]
+        x = x + _ffn(loc, x, cfg)
+        # global layer: the full cache
+        x, _ = _layer_step(glo, x, pos2, cfg, kv_cache=(cache["k"][i], cache["v"][i]),
+                           kv_valid=kv_valid)
+    return x
+
+
+def _use_windowed_cache(cfg: ModelConfig, max_len: int) -> bool:
+    return (
+        cfg.alternate_local_global
+        and cfg.sliding_window > 0
+        and max_len > cfg.sliding_window
+        and cfg.num_layers % 2 == 0
+    )
+
+
+def _handoff_ring(k: torch.Tensor, v: torch.Tensor, cache: Dict, valid_len) -> None:
+    """Prefill K/V ``(L, B, S, Hkv, Dh)`` into a ring cache: the odd
+    (global) layers into the first S rows of ``k``/``v``; for the even
+    (local) layers, slot j of row b takes the largest position a <
+    valid_len[b] with a mod W = j, and a slot no such position reaches is
+    left as it is (decode masks it until it writes there)."""
+    s, b = k.shape[2], k.shape[1]
+    w = cache["k_local"].shape[2]
+    cache["k"][:, :, :s].copy_(k[1::2])
+    cache["v"][:, :, :s].copy_(v[1::2])
+    dev = k.device
+    last = (torch.as_tensor(valid_len if valid_len is not None else [s] * b)
+            .to(device=dev, dtype=torch.long) - 1)
+    j = torch.arange(w, device=dev)
+    a = last[:, None] - torch.remainder(last[:, None] - j[None, :], w)  # (B, W)
+    ok = (a >= 0)[None, :, :, None, None]
+    rows = torch.arange(b, device=dev)[:, None]
+    src = a.clamp(min=0)
+    for name, kv in (("k_local", k), ("v_local", v)):
+        ring = cache[name]
+        ring.copy_(torch.where(ok, kv[0::2][:, rows, src], ring))
+
+
+# ----------------------------------------------------------------------------
 # Cache structure
 # ----------------------------------------------------------------------------
 
-def handoff(cfg: ModelConfig, kv, cache: Dict) -> Dict:
+def handoff(cfg: ModelConfig, kv, cache: Dict, valid_len=None) -> Dict:
     """Write the tree `prefill_step` returned into a decode cache, in place:
     the recurrent ``conv``/``state`` leaves whole, K/V into the first S
-    positions. Returns ``cache``."""
+    positions, or into a ring cache by position (`_handoff_ring`; there
+    ``valid_len``, the prompts' lengths as `prefill_step` took them, says
+    which positions are real, all S when None). Returns ``cache``."""
     if cfg.family == "ssm":
         rec, attn = kv, None
     elif cfg.family == "hybrid":
@@ -424,7 +555,9 @@ def handoff(cfg: ModelConfig, kv, cache: Dict) -> Dict:
     if rec is not None:
         cache["conv"].copy_(rec["conv"])
         cache["state"].copy_(rec["state"])
-    if attn is not None:
+    if attn is not None and "k_local" in cache:
+        _handoff_ring(*attn, cache, valid_len)
+    elif attn is not None:
         k, v = attn
         s = k.shape[2]
         cache["k"][:, :, :s].copy_(k)
@@ -433,12 +566,19 @@ def handoff(cfg: ModelConfig, kv, cache: Dict) -> Dict:
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
-    """{leaf: (shape, dtype-name)} of the decode cache: plain k/v, the
+    """{leaf: (shape, dtype-name)} of the decode cache: plain k/v, the ring
+    cache of alternating local/global models longer than their window, the
     stacked recurrent cache, or both for hybrid. The conv leaf has the
     model's dtype (ROADMAP C3)."""
     check_supported(cfg)
     hd = cfg.resolved_head_dim
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES and _use_windowed_cache(cfg, max_len):
+        half = cfg.num_layers // 2
+        kv_g = (half, batch, max_len, cfg.num_kv_heads, hd)
+        kv_l = (half, batch, cfg.sliding_window, cfg.num_kv_heads, hd)
+        return dict(k=(kv_g, cfg.dtype), v=(kv_g, cfg.dtype),
+                    k_local=(kv_l, cfg.dtype), v_local=(kv_l, cfg.dtype))
+    if cfg.family in ATTN_FAMILIES:
         kv = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
         return dict(k=(kv, cfg.dtype), v=(kv, cfg.dtype))
     s = ssm_mod.ssm_cache_shape(cfg, batch)

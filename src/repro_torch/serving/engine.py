@@ -14,8 +14,13 @@ chunk by copying their result to the host, an intermediate prefill chunk
 and a KV attach by synchronizing. Otherwise the schedulers would learn
 launch times instead of step times.
 
-Engine model family: the dense decoder (the moe and vlm families of the
-reference engine are not ported yet).
+Engine model families: the attention decoders (dense, moe and vlm), as the
+reference engine serves (DESIGN.md §engine-scope); prompts are tokens for
+every family. An alternating local/global model (gemma2) is served only at
+``max_len <= sliding_window``: above it the decode cache would be the ring,
+into which chunked prefill does not write (the reference's chunk fails
+there, ROADMAP C6), so the engine refuses such a configuration when it is
+built.
 """
 from __future__ import annotations
 
@@ -328,6 +333,13 @@ class DisaggServer:
         trace: Optional["TraceRecorder"] = None,
         device: DeviceLike = "cuda",
     ):
+        cfg = model.cfg
+        if "k_local" in cache_struct(cfg, 1, ecfg.max_len):
+            raise ValueError(
+                f"{cfg.name}: max_len={ecfg.max_len} exceeds sliding_window="
+                f"{cfg.sliding_window}, so the decode cache would be the ring cache, which "
+                "chunked prefill does not fill (ROADMAP C6); serve at max_len <= "
+                f"{cfg.sliding_window}")
         self.model, self.ecfg = model, ecfg
         self.device = resolve_device(device)
         self.clock: Clock = clock if clock is not None else MonotonicClock()

@@ -51,7 +51,7 @@ def test_attention_wrappers_reject_what_the_redesigned_kernels_do_not_take(cuda)
     least one row."""
     pos = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
     kvl = torch.ones(1, dtype=torch.int32, device=cuda)
-    for dh in (24, 96, 256):  # bf16 head dims outside HEAD_DIMS
+    for dh in (24, 96, 192):  # bf16 head dims outside HEAD_DIMS
         q = torch.zeros(1, 8, 4, dh, device=cuda, dtype=torch.bfloat16)
         k = torch.zeros(1, 8, 2, dh, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
@@ -158,3 +158,68 @@ def test_small_serve_goes_through_the_kernels(cuda, page_size, rng):
     assert prefill_attention.launches > n_pre and decode_attention.launches > n_dec
     for i, p in enumerate(prompts):
         assert outs[i] == reference_generate(model, params, p, 6, 64)
+
+
+# bf16 against the plain version computed in f32 from the same inputs, in
+# relative norm (decode lane by lane), as chip_smoke.py holds them: the 2e-2
+# elementwise tolerance is as large as a typical output over a few hundred rows
+# (the limits are about twice chip_smoke.py's largest readings on an H100)
+BF16_PREFILL_REL = 6e-3
+BF16_DECODE_REL = 6e-3
+
+
+def _softmax_pv_f32(s, mask, v, spec):
+    """softmax of the masked f32 scores, P rounded to bf16 as the kernels
+    round it, times v in f32."""
+    from repro_torch.kernels.prefill_attention.ref import NEG_INF
+
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum(spec, p.to(torch.bfloat16).float(), v.float())
+
+
+def _capped(s, cap):
+    return cap * torch.tanh(s / cap) if cap else s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_256_kernels_match_their_plain_versions(cuda, dtype):
+    """gemma2's head dim in both attention kernels (bf16 prefill on wgmma at
+    32-row KV tiles, f32 decode at a 3-slot ring), logit cap 50 included:
+    within 2e-5 (f32) or 2e-2 (bf16) of the plain versions, and bf16 within
+    the relative-norm limits of the plain versions in f32."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.prefill_attention.ref import prefill_attention_ref
+
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale).to(dtype)
+
+    b, sq, skv, hq, hkv = 2, 100, 300, 16, 8
+    q, k, v = randn(b, sq, hq, 256, scale=3.0), randn(b, skv, hkv, 256, scale=3.0), randn(b, skv, hkv, 256)
+    kv_len = torch.tensor([300, 170], dtype=torch.int32, device=cuda)
+    q_pos = (kv_len[:, None] - sq + torch.arange(sq, device=cuda, dtype=torch.int32)).contiguous()
+    for cap in (0.0, 50.0):
+        out = prefill_attention(q, k, v, q_pos, kv_len, logit_cap=cap)
+        ref = prefill_attention_ref(q, k, v, q_pos, kv_len, logit_cap=cap)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        qd = q[:, 0].contiguous()
+        outd = decode_attention(qd, k, v, kv_len, logit_cap=cap)
+        ref = decode_attention_ref(qd, k, v, kv_len, logit_cap=cap)
+        torch.testing.assert_close(outd.float(), ref.float(), rtol=tol, atol=tol)
+        if dtype != torch.bfloat16:
+            continue
+        kvp = torch.arange(skv, device=cuda)
+        kf = k.float().repeat_interleave(hq // hkv, dim=2)
+        vf = v.float().repeat_interleave(hq // hkv, dim=2)
+        s = _capped(torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / 16.0, cap)
+        mask = (kvp[None, None, :] <= q_pos[:, :, None]) & (kvp[None, None, :] < kv_len[:, None, None])
+        ref32 = _softmax_pv_f32(s, mask[:, None], vf, "bhqk,bkhd->bqhd")
+        rel = float((out.float() - ref32).norm() / ref32.norm())
+        assert rel <= BF16_PREFILL_REL, f"prefill cap {cap}: relative error {rel:.3e}"
+        s = _capped(torch.einsum("bhd,bkhd->bhk", qd.float(), kf) / 16.0, cap)
+        mask = kvp[None, None, :] < kv_len[:, None, None]
+        ref32 = _softmax_pv_f32(s, mask, vf, "bhk,bkhd->bhd")
+        lanes = (outd.float() - ref32).flatten(1).norm(dim=1) / ref32.flatten(1).norm(dim=1)
+        assert float(lanes.max()) <= BF16_DECODE_REL, f"decode cap {cap}: lanes {lanes.tolist()}"

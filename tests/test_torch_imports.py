@@ -56,7 +56,7 @@ if not torch.cuda.is_available():
 
 def test_port_imports_nothing_of_jax_and_needs_a_device():
     mods = list(_modules())
-    assert len(mods) > 25
+    assert len(mods) > 25 and "repro_torch.models.moe" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _PROBE, *mods], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=300)

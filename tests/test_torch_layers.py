@@ -1,6 +1,7 @@
 """Every layer of the port against its twin in ``repro.models.layers`` on
 the same random inputs (made with numpy), plus the sampler, the device
-rule and the slice's NotImplementedError boundary."""
+rule and the slices' NotImplementedError boundary (windowed and blockwise
+attention are held against JAX in tests/test_torch_window.py)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -94,10 +95,7 @@ def test_attention_dispatch(impl, sq, rng):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize(
-    "kw", [dict(window=8), dict(causal=False), dict(impl="blockwise")],
-    ids=["window", "non-causal", "blockwise"],
-)
+@pytest.mark.parametrize("kw", [dict(causal=False)], ids=["non-causal"])
 def test_attention_outside_the_slice_raises(kw):
     q = torch.zeros(1, 2, 4, 16)
     k = torch.zeros(1, 4, 2, 16)
@@ -161,8 +159,7 @@ def test_device_rule():
 
 
 @pytest.mark.parametrize(
-    "arch", ["phi3.5-moe-42b-a6.6b-smoke", "mamba2-130m-smoke", "zamba2-2.7b-smoke",
-             "seamless-m4t-medium-smoke", "chameleon-34b-smoke", "gemma2-9b-smoke"],
+    "arch", ["mamba2-130m-smoke", "zamba2-2.7b-smoke", "seamless-m4t-medium-smoke"],
 )
 def test_configs_outside_the_slice_raise(arch):
     # the ssm and hybrid families are ported; what stays outside for them is
