@@ -13,8 +13,11 @@ Phases, each printed on its own lines:
            the sweep of tests/test_kernels.py (plus Dh=256) and at the serving
            shapes of llama3-8b (attention), zamba2-2.7b (attention at Dh=80,
            SSD scan), gemma2-9b (attention at Dh=256, prefill with logit cap
-           50), chameleon-34b (decode at 8 query heads per KV head) and
-           mamba2-130m (SSD scan), each in f32 (attention tol 2e-5, SSD
+           50), chameleon-34b (decode at 8 query heads per KV head),
+           seamless-m4t-medium (Dh=64, one query head per KV head: decode
+           over the 4096-row encoder memory and a 512-row self cache, prefill
+           of 16-token ragged target prefixes) and mamba2-130m (SSD scan),
+           each in f32 (attention tol 2e-5, SSD
            1e-4) and bf16 (tol 2e-2; bf16 prefill also within 6e-3 in
            relative norm of the plain version in f32, logit cap included,
            and bf16 decode within BF16_DECODE_REL lane by lane, where the
@@ -116,13 +119,34 @@ Phases, each printed on its own lines:
            (the ring too) on the decode kernel; chameleon-34b (8 of 48
            layers) prefills from seeded embeddings, decodes 16 steps and
            serves 4 requests on tokens, both kernels at Hq/Hkv = 8
+  encdec   seamless-m4t-medium at full width and depth (12 + 12 layers) in
+           bf16 (random weights from a seed) through the model API: prefill
+           of 4 sources of 4096 seeded frame embeddings with 16-token target
+           prefixes (valid 16/12/8/4), exactly 12 prefill-kernel launches and
+           24 calls on the plain non-causal path (encoder, cross attention);
+           the handoff into a 512-row self cache (cross leaves at the
+           encoder's length); 64 greedy decode steps, exactly 24
+           decode-kernel launches a step (self and cross) and no plain call;
+           every logit row finite. Then f32 at full width, 4 + 4 layers: the
+           prefill of 16 target tokens plus 16 decode steps gives the last
+           logits of the prefill of 32 (tol 2e-4), and the 8 greedy tokens
+           after both are equal
+  sched    the Kairos schedulers as device programs (core/device_sched.py)
+           at n = 256 (benchmarks/kernel_bench.py's queue) and 4096 slots:
+           urgency_select and slack_select (at kernel_bench's t = 10 s, where
+           nothing packs, and at t = 9 s, where the pack binds) held against
+           the host policies with tests/test_jax_sched_property.py's
+           criteria, the sched_scan kernels bit for bit against their plain
+           versions, each decision timed beside the host policy's (no winner
+           asserted)
 
 Every phase runs on every call. It imports nothing of JAX or of the JAX
 package, exits non-zero when there is no card or when run outside the
 repository, and prints the kernel table and the card line before the last
 line, which is the ``{"ok": true, ...}`` record. The table's launches are
-the slot serve's (attention) and the zamba2 prefill's (SSD scan, whose row
-is timed at that prefill's shape, B=4 L=2048), each counted from zero.
+the slot serve's (attention), the zamba2 prefill's (SSD scan, whose row
+is timed at that prefill's shape, B=4 L=2048) and the sched phase's
+decisions (sched_scan, timed at 4096 slots), each counted from zero.
 """
 from __future__ import annotations
 
@@ -156,6 +180,13 @@ BF16_PREFILL_REL = 6e-3
 # shapes); the planted faults there read 8.7e-2 and more.
 BF16_DECODE_REL = 6e-3
 DECODE_TILE_ROWS = 32  # BK in csrc/decode_attention.cu
+# One row left out of a lane of kv_len rows moves it by about kv_len^-1/2 in
+# relative norm, so the "one row short" fault is planted only where the
+# shortest lane has at most this many rows (>= 3.1e-2, five times the limit);
+# at the 4096-row cross attention of seamless-m4t-medium it would be 1.6e-2,
+# too near twice the limit to tell from rounding. The tile and split faults
+# are planted at every shape whose longest lane has more than one of them.
+ROW_FAULT_MAX_LEN = 1024
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device spin at the H100's clock (`_time_ms`)
 
 
@@ -452,6 +483,13 @@ def phase_kernels(ctx) -> None:
                     [4096, 3584, 3000, 2048, 1500, 777, 256, 65]),
         # chameleon-34b: 8 query heads per KV head
         _decode_row(gen, flush, 8, 2048, 64, 8, 128, [2048, 1900, 1536, 1024, 700, 512, 130, 64]),
+        # seamless-m4t-medium (Dh=64, one query head per KV head), the encdec
+        # phase's shapes: a decode step's cross attention over the 4096-row
+        # encoder memory and its self attention over a 512-row cache, and the
+        # decoder's prefill of 16-token target prefixes, ragged
+        _decode_row(gen, flush, 4, 4096, 16, 16, 64, [4096] * 4),
+        _decode_row(gen, flush, 4, 512, 16, 16, 64, [17, 40, 63, 80]),
+        _prefill_row(gen, flush, 4, 16, 16, 16, 16, 64, kv_lens=[16, 12, 8, 4]),
     ]
     for r in rows + extra:
         if "rel_err" in r:
@@ -461,8 +499,9 @@ def phase_kernels(ctx) -> None:
             faults = r.pop("faults")
             rel = (f", relative error bf16 worst lane {r.pop('lane_rel'):.3e} (limit "
                    f"{BF16_DECODE_REL}; planted faults: every kv_len one row short "
-                   f"{faults['row']:.3e}, longest lane without its last tile "
-                   f"{faults['tile']:.3e}, without its last split {faults['split']:.3e})")
+                   f"{faults.get('row', float('nan')):.3e}, longest lane without its last tile "
+                   f"{faults.get('tile', float('nan')):.3e}, without its last split "
+                   f"{faults.get('split', float('nan')):.3e}; nan: not planted)")
         say(f"[kernels] {r['name']} at {r['shape']}: kernel {r['ms']:.4f} ms per call (device "
             f"alone {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, sdpa "
             f"{r['library_ms']:.4f} ms (device alone {r['library_device_ms']:.4f} ms), bound "
@@ -540,11 +579,12 @@ def _attention_edge_checks(gen) -> None:
         f"in a batch of 8 and in a cache cut to its kv_len bit-identical")
 
 
-def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0) -> dict:
+def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0, kv_lens=None) -> dict:
     """prefill_attention against its plain version at one serving shape, the
-    chunk at the end of the prefix: checked in f32 (the tight tolerance) then
-    bf16 (the serving dtype, which is timed, with SDPA as yardstick; SDPA
-    takes no logit cap, so with ``cap`` it computes the uncapped function)."""
+    chunk at the end of the prefix (every kv_len Skv, or ``kv_lens``):
+    checked in f32 (the tight tolerance) then bf16 (the serving dtype, which
+    is timed, with SDPA as yardstick; SDPA takes no logit cap, so with
+    ``cap`` it computes the uncapped function)."""
     import torch
     import torch.nn.functional as F
 
@@ -554,7 +594,8 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0) -> dict:
     dev = torch.device("cuda")
     q_pos = (torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq))[None].expand(b, sq)
     q_pos = q_pos.contiguous()
-    kv_len = torch.full((b,), skv, device=dev, dtype=torch.int32)
+    kv_len = (torch.full((b,), skv, device=dev, dtype=torch.int32) if kv_lens is None
+              else torch.tensor(kv_lens, device=dev, dtype=torch.int32))
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         q = _randn(gen, (b, sq, hq, dh), dtype, 3.0 if cap else 1.0)
@@ -579,9 +620,9 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0) -> dict:
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
         iters=20, flush=flush, device_only=device_only)
     visible = torch.minimum(q_pos.long() + 1, kv_len.long()[:, None]).sum().item()
-    kv_rows = min(skv, int(q_pos.max()) + 1)
+    kv_rows = int(torch.minimum(q_pos.long().amax(1) + 1, kv_len.long()).sum())  # rows read
     flops = 4 * hq * dh * visible
-    nbytes = 2 * (2 * b * sq * hq * dh + 2 * b * kv_rows * hkv * dh) + 4 * (b * sq + b)
+    nbytes = 2 * (2 * b * sq * hq * dh + 2 * kv_rows * hkv * dh) + 4 * (b * sq + b)
     return dict(
         name="prefill_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -598,7 +639,8 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0) -> dict:
         library_ms=lib(False), library_device_ms=lib(True),
         **_bound(flops, nbytes, "torch.bfloat16"),
         shape=(f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} bf16, q_pos {skv - sq}.."
-               f"{skv - 1}" + (f", logit cap {cap} (SDPA uncapped)" if cap else "")),
+               f"{skv - 1}" + (f", kv_len {kv_lens}" if kv_lens else "")
+               + (f", logit cap {cap} (SDPA uncapped)" if cap else "")),
     )
 
 
@@ -630,9 +672,13 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
     ref32 = _decode_ref_f32(q, k, v, kv_len)
     rel = _check_bf16_decode(out, ref32, kv_len, f"at serving shape Dh={dh} Hq/Hkv={hq // hkv}")
     longest = int(kv_len.argmax())
-    faults = {"row": float(_lane_rel(decode_attention(q, k, v, (kv_len - 1).clamp_min(1)),
-                                     ref32).max())}
+    faults = {}
+    if int(kv_len.min()) <= ROW_FAULT_MAX_LEN:
+        faults["row"] = float(_lane_rel(decode_attention(q, k, v, (kv_len - 1).clamp_min(1)),
+                                        ref32).max())
     for name, rows in (("tile", DECODE_TILE_ROWS), ("split", SPLIT_ROWS)):
+        if int(kv_len[longest]) <= rows:
+            continue  # the lane has one tile (split): nothing to leave out
         cut = kv_len.clone()
         cut[longest] -= rows
         faults[name] = float(_lane_rel(decode_attention(q, k, v, cut), ref32)[longest])
@@ -2069,6 +2115,333 @@ def _moe_dropping_check(ctx) -> None:
     _free()
 
 
+# --------------------------------------------------------------------- encdec
+# seamless-m4t-medium through the model API: 4 sources of DECODE_ENC_LEN
+# seeded frame embeddings (the reference's decode-cell memory), target
+# prefixes of 16 tokens with valid lengths 16/12/8/4, a 512-row self cache and
+# 64 greedy decode steps
+ENC_TGT, ENC_VALID, ENC_MAX_LEN, ENC_STEPS = 16, (16, 12, 8, 4), 512, 64
+ENC_PARITY_LAYERS, ENC_PARITY_SRC = 4, 1024  # f32 parity: 4 + 4 layers, 1024 frames
+ENC_PARITY_TOL = 2e-4  # atol = rtol, as tests/test_models_numerics.py
+
+
+def phase_encdec(ctx) -> None:
+    """seamless-m4t-medium at full width and depth (12 + 12 layers) in bf16,
+    random weights from seed 0: Model.prefill (encoder and cross attention
+    on the plain non-causal path, the decoder's self attention on the
+    prefill kernel), the handoff into a 512-row self cache with the cross
+    leaves at the encoder's length, 64 greedy Model.decode steps (self and
+    cross attention on the decode kernel); then the f32 parity at full width,
+    4 + 4 layers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.encdec import DECODE_ENC_LEN, handoff
+
+    dev, card = ctx["device"], ctx["card"]
+    _free()
+    cfg = get_config("seamless-m4t-medium")  # full width and depth, bf16 (its own dtype)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"[encdec] {cfg.name}: {cfg.enc_layers} encoder + {cfg.num_layers} decoder layers, "
+        f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}x"
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.act}, "
+        f"{cfg.dtype}; {n_params / 1e9:.3f} B random parameters (seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    b = len(ENC_VALID)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src = torch.randn((b, DECODE_ENC_LEN, cfg.d_model), generator=gen, device=dev)
+    src = src.to(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    tgt = torch.tensor(rng.integers(2, cfg.vocab_size, (b, ENC_TGT)), device=dev)
+    valid = torch.tensor(ENC_VALID, dtype=torch.int32, device=dev)
+    kernels = {"prefill_attention": prefill_attention, "decode_attention": decode_attention}
+
+    def counts(zero=False):
+        out = {n: k.launches for n, k in kernels.items()}
+        if zero:
+            for k in kernels.values():
+                k.launches = 0
+        return out
+
+    probe = _AttnProbe()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts(zero=True)
+        t0 = time.perf_counter()
+        logits, kv = model.prefill(params, dict(src=src, tgt=tgt), valid_len=valid)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre, pre_plain = counts(zero=True), probe.plain
+        prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {"prefill_attention": cfg.num_layers, "decode_attention": 0}
+        check(pre == want, f"[encdec] prefill launched {pre}, expected {want}")
+        check(pre_plain == cfg.enc_layers + cfg.num_layers,
+              f"[encdec] prefill made {pre_plain} calls on the plain non-causal path, expected "
+              f"{cfg.enc_layers} (encoder) + {cfg.num_layers} (cross)")
+        cache = handoff(cfg, kv, ENC_MAX_LEN)
+        del kv
+        check(tuple(cache["cross_k"].shape[2:]) == (DECODE_ENC_LEN, cfg.num_kv_heads,
+                                                     cfg.resolved_head_dim)
+              and cache["self_k"].shape[2] == ENC_MAX_LEN, "[encdec] handoff cache shapes "
+              f"{ {n: tuple(t.shape) for n, t in cache.items()} }")
+        probe.plain = 0
+        finite = [torch.isfinite(logits).all()]
+        out, step_s, cache = _decode_loop(model, params, torch.argmax(logits, -1), valid.clone(),
+                                          cache, ENC_STEPS, finite)
+        dec, dec_plain = counts(), probe.plain
+        shapes = {n: sorted(v) for n, v in probe.shapes.items()}
+    finally:
+        probe.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"prefill_attention": 0, "decode_attention": 2 * cfg.num_layers * ENC_STEPS}
+    check(dec == want, f"[encdec] {ENC_STEPS} decode steps launched {dec}, expected {want} "
+          f"({2 * cfg.num_layers} decode kernels a step: self and cross)")
+    check(dec_plain == 0, f"[encdec] decode made {dec_plain} calls on a plain path")
+    check(all(bool(f) for f in finite), "[encdec] a logit row was not finite")
+    check(tuple(out.shape) == (b, ENC_STEPS), f"[encdec] tokens {tuple(out.shape)}")
+    check(shapes == {n: [(cfg.resolved_head_dim, 1)] for n in kernels},
+          f"[encdec] kernel calls at (Dh, Hq/Hkv) {shapes}")
+    say(f"[encdec] prefill of {b} sources x {DECODE_ENC_LEN} frames, target prefixes "
+        f"{ENC_TGT} (valid {list(ENC_VALID)}) {1e3 * prefill_s:.2f} ms (peak "
+        f"{prefill_peak:.2f} GiB); launches {pre}, {pre_plain} plain non-causal calls; "
+        f"handoff into a {ENC_MAX_LEN}-row self cache, cross leaves at {DECODE_ENC_LEN} rows; "
+        f"{ENC_STEPS} greedy decode steps mean {1e3 * sum(step_s) / len(step_s):.2f} ms (first "
+        f"{1e3 * step_s[0]:.2f} ms); launches {dec} ({2 * cfg.num_layers} a step), 0 plain "
+        f"calls; kernels at (Dh, Hq/Hkv) {shapes['decode_attention'][0]}; peak memory "
+        f"{peak:.2f} GiB; all logits finite; request 0's first tokens {out[0, :8].tolist()} "
+        f"[{card}]")
+    del params, cache, logits
+    _encdec_parity(ctx)
+
+
+def _encdec_parity(ctx) -> None:
+    """float32 at full width, 4 encoder + 4 decoder layers: the prefill of a
+    16-token target prefix then 16 teacher-forced decode steps give the last
+    logits of the prefill of the 32-token prefix, and the 8 greedy tokens
+    after both paths are equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.encdec import handoff
+
+    dev, card = ctx["device"], ctx["card"]
+    _free()
+    cfg = get_config("seamless-m4t-medium").replace(
+        dtype="float32", num_layers=ENC_PARITY_LAYERS, enc_layers=ENC_PARITY_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    src = torch.randn((2, ENC_PARITY_SRC, cfg.d_model), generator=gen, device=dev)
+    tgt = torch.tensor(np.random.default_rng(1).integers(2, cfg.vocab_size, (2, 32)), device=dev)
+    max_len, n = 64, 16
+    lg_a, kv = model.prefill(params, dict(src=src, tgt=tgt[:, :n]))
+    cache_a = handoff(cfg, kv, max_len)
+    for t in range(n, 2 * n):
+        lg_a, cache_a = model.decode(params, tgt[:, t:t + 1], torch.full((2,), t, device=dev),
+                                     cache_a)
+    lg_b, kv = model.prefill(params, dict(src=src, tgt=tgt))
+    cache_b = handoff(cfg, kv, max_len)
+    del kv
+    err = _max_err(lg_a, lg_b)
+    check(bool(torch.allclose(lg_a, lg_b, rtol=ENC_PARITY_TOL, atol=ENC_PARITY_TOL)),
+          f"[parity] seamless f32: prefill + {n} decode steps vs prefill of {2 * n} tokens, "
+          f"logits max abs err {err:.3e} beyond {ENC_PARITY_TOL}")
+    seqs = []
+    for lg, cache in ((lg_a, cache_a), (lg_b, cache_b)):
+        tok, seq = torch.argmax(lg, -1), []
+        for t in range(8):
+            seq.append(tok.tolist())
+            lg, cache = model.decode(params, tok[:, None], torch.full((2,), 2 * n + t, device=dev),
+                                     cache)
+            tok = torch.argmax(lg, -1)
+        seqs.append(seq)
+    check(seqs[0] == seqs[1], f"[parity] seamless f32: greedy tokens {seqs[0]} != {seqs[1]}")
+    say(f"[parity] seamless-m4t-medium f32, full width, depth cut {get_config(cfg.name).enc_layers}"
+        f" + {get_config(cfg.name).num_layers} -> {ENC_PARITY_LAYERS} + {ENC_PARITY_LAYERS}, "
+        f"{ENC_PARITY_SRC} frames: prefill of {n} target tokens + {n} decode steps vs prefill "
+        f"of {2 * n}, last logits max abs err {err:.3e} (tol {ENC_PARITY_TOL}); 8 greedy tokens "
+        f"after each path equal [{card}]")
+    del params, cache_a, cache_b
+    _free()
+
+
+# ---------------------------------------------------------------------- sched
+SCHED_SIZES = (256, 4096)  # kernel_bench's queue, and a queue of thousands of slots
+SCHED_REPS = 20
+
+
+def _sched_queues(n: int):
+    """kernel_bench's queues (benchmarks/kernel_bench.py:84-130) at n slots,
+    from seed 0: n queued prefill requests (arrivals in [0, 10) s, prompts
+    of 100-100,000 tokens) and n decoding requests (sequences of
+    1,000-131,072 tokens, 1-100 tokens decoded since t = 9 s)."""
+    import numpy as np
+
+    from repro_torch.core.request import Phase, Request, SLOSpec
+
+    rng = np.random.default_rng(0)
+    queue = [Request(rid=i, arrival=float(rng.uniform(0, 10)),
+                     input_len=int(rng.integers(100, 100_000)), output_len=200, slo=SLOSpec())
+             for i in range(n)]
+    active = []
+    for i in range(n):
+        r = Request(rid=i, arrival=0.0, input_len=int(rng.integers(1000, 131_072)),
+                    output_len=500, slo=SLOSpec())
+        r.first_token_time = r.decode_start = 9.0
+        r.n_generated = r.n_decoded = int(rng.integers(1, 100))
+        r.phase = Phase.DECODE
+        active.append(r)
+    return queue, active
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Mean time per call of a host policy's decision, on the host's clock."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_sched(ctx) -> None:
+    """The Kairos schedulers as device programs (core/device_sched.py) on the
+    card at n = 256 and 4096 slots, held against the port's host policies
+    with the property tests' criteria (urgency: totals within a token, takes
+    equal where no score ties; slack: batch size within one, the fallback
+    exact), the sched_scan kernels bit for bit against their plain versions,
+    and each decision timed beside the host policy's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import device_sched as ds
+    from repro_torch.core.lut import StepTimeLUT
+    from repro_torch.kernels.sched_scan.ops import fcfs_scan, slack_pack
+    from repro_torch.kernels.sched_scan.ref import fcfs_scan_ref, slack_pack_ref
+    from repro_torch.policies import SlackDecodeScheduler, UrgencyPrefillScheduler
+    from repro_torch.sim.costmodel import PAPER_COST_MODEL
+
+    dev, card = ctx["device"], ctx["card"]
+    t_now, mu, budget = 5.0, 20_000.0, 8192
+    lut = StepTimeLUT(analytic=PAPER_COST_MODEL.decode_lut_seed)
+    tab, be, se = ds.lut_tensors(lut, dev)
+    fcfs_scan.launches = slack_pack.launches = 0  # the main path: the decisions below
+    scan_args = {}
+    for n in SCHED_SIZES:
+        queue, active = _sched_queues(n)
+        host = UrgencyPrefillScheduler()
+        host_take = np.zeros(n)
+        for r, take in host.select(queue, t_now, mu, budget):
+            host_take[r.rid] = take
+        slots = ds.prefill_slots(queue, device=dev)
+        urg = lambda: ds.urgency_select(  # noqa: E731
+            slots["arrivals"], slots["input_lens"], slots["remaining"], slots["active"], t_now,
+            mu, slots["slo_ttft"], budget)
+        take = urg().cpu().numpy()
+        u = host.urgency_scores(queue, t_now, mu)
+        untied = len(set(np.round(u * 1e7).astype(np.int64))) == n
+        compared = "totals and takes (no tied score)" if untied else "totals (scores tie)"
+        check(abs(take.sum() - host_take.sum()) <= 1.0,
+              f"[sched] n={n}: urgency totals {take.sum()} vs host {host_take.sum()}")
+        if untied:
+            check(np.abs(take - host_take).max() <= 1.0,
+                  f"[sched] n={n}: urgency takes differ from the host's on untied scores")
+        dev_ms = _time_ms(urg, iters=SCHED_REPS, flush=lambda: None)
+        host_ms = _host_ms(lambda: host.select(queue, t_now, mu, budget), SCHED_REPS)
+        say(f"[sched] n={n} urgency_select: device {dev_ms:.4f} ms per decision (CUDA events, "
+            f"ends in a sync), host UrgencyPrefillScheduler.select {host_ms:.4f} ms; "
+            f"{int((take > 0).sum())} slots take {take.sum():.0f} of {budget} tokens; the host's "
+            f"{compared} equal [{card}]")
+        dslots = ds.decode_slots(active, device=dev)
+        sels = {}
+        for t_dec in (10.0, 9.0):  # kernel_bench's (nothing packs: decode all), and t = 9 s
+            dsel = lambda: ds.slack_select(  # noqa: E731
+                dslots["seq_lens"], dslots["n_gen"], dslots["first_token_t"], dslots["active"],
+                t_dec, dslots["slo_tpot"], tab, be, se)
+            sel = dsel()
+            sels[t_dec] = sel
+            got = sel.selected.cpu().numpy()
+            hsched = SlackDecodeScheduler(lut, slo_margin=1.0)
+            batch, _ = hsched.select(active, t_dec)
+            want = np.zeros(n, bool)
+            want[[r.rid for r in batch]] = True
+            if want.all():
+                check(got.all(), f"[sched] n={n} t={t_dec}: host decodes all, device "
+                      f"{int(got.sum())}")
+            else:
+                check(abs(int(got.sum()) - int(want.sum())) <= 1,
+                      f"[sched] n={n} t={t_dec}: batch {int(got.sum())} vs host {int(want.sum())}")
+            check(int(sel.batch_size) == int(got.sum()), f"[sched] n={n}: batch_size "
+                  f"{int(sel.batch_size)} != {int(got.sum())} selected")
+            dev_ms = _time_ms(dsel, iters=SCHED_REPS, flush=lambda: None)
+            host_ms = _host_ms(lambda: hsched.select(active, t_dec), SCHED_REPS)
+            say(f"[sched] n={n} slack_select at t={t_dec}: device {dev_ms:.4f} ms per decision, "
+                f"host SlackDecodeScheduler.select {host_ms:.4f} ms; batch {int(got.sum())} "
+                f"(host {int(want.sum())}{', all: the fallback' if want.all() else ''}), s_min "
+                f"{float(sel.s_min):.5f} s [{card}]")
+        if n == max(SCHED_SIZES):  # the scans' inputs at the largest queue
+            order = torch.argsort(torch.where(slots["active"], slots["arrivals"], 3.0e38),
+                                  stable=True)
+            d = torch.where(slots["active"], slots["remaining"] / torch.tensor(mu, device=dev),
+                            0.0)
+            scan_args["fcfs"] = (slots["arrivals"][order].contiguous(), d[order].contiguous(),
+                                 torch.tensor([t_now], device=dev))
+            order = torch.argsort(dslots["seq_lens"], stable=True)
+            scan_args["pack"] = (dslots["seq_lens"][order].contiguous(),
+                                 dslots["active"][order].contiguous(),
+                                 sels[9.0].s_min.reshape(1), tab, be, se)
+    launches = fcfs_scan.launches + slack_pack.launches
+    check(fcfs_scan.launches > 0 and slack_pack.launches > 0,
+          f"[sched] fcfs_scan launched {fcfs_scan.launches}, slack_pack {slack_pack.launches}")
+    ctx["launches"]["sched_scan"] = launches
+
+    # sched_scan against its plain version, and its row of the kernel table
+    fin, fin_ref = fcfs_scan(*scan_args["fcfs"]), fcfs_scan_ref(*scan_args["fcfs"])
+    sel_s, cnt = slack_pack(*scan_args["pack"])
+    sel_r, cnt_r = slack_pack_ref(*scan_args["pack"])
+    err = _max_err(fin, fin_ref)
+    check(torch.equal(fin, fin_ref), f"[sched] fcfs_scan differs from its plain version by {err}")
+    check(torch.equal(sel_s, sel_r) and torch.equal(cnt, cnt_r),
+          f"[sched] slack_pack selects {int(cnt)} slots, its plain version {int(cnt_r)}")
+    n = max(SCHED_SIZES)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def both():
+        fcfs_scan(*scan_args["fcfs"])
+        slack_pack(*scan_args["pack"])
+
+    def both_ref():
+        fcfs_scan_ref(*scan_args["fcfs"])
+        slack_pack_ref(*scan_args["pack"])
+
+    nbytes = 4 * 3 * n + 4 + (4 + 1 + 1) * n + 4 * tab.numel() + 4 * (be.numel() + se.numel()) + 8
+    row = dict(
+        name="sched_scan", route="cuda", source="src/repro_torch/kernels/csrc/sched_scan.cu",
+        replaces="src/repro/core/jax_sched.py:44", max_abs_err=err,
+        ms=_time_ms(both, iters=20, flush=flush_buf.zero_),
+        device_ms=_time_ms(both, iters=20, flush=flush_buf.zero_, device_only=True),
+        plain_ms=_time_ms(both_ref, iters=2, flush=flush_buf.zero_),
+        library_ms=None, **_bound(6 * n, nbytes, "torch.float32"),
+        shape=f"N={n} slots, LUT {tuple(tab.shape)}",
+    )
+    say(f"[sched] sched_scan (fcfs_scan + slack_pack, one block each) at n={n}: kernels "
+        f"{row['ms']:.4f} ms per pair of calls (device alone {row['device_ms']:.4f} ms), plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}; the "
+        f"walk is a chain of dependent steps, which the bound does not see); bit for bit equal "
+        f"to the plain versions (pack selects {int(cnt)}); launches on the main path "
+        f"{launches} [{card}]")
+    ctx["kernel_rows"].append(row)
+
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2090,7 +2463,8 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         for phase in (phase_device, phase_build, phase_kernels, phase_serve, phase_fleet,
-                      phase_eval, phase_parity, phase_ssm, phase_families):
+                      phase_eval, phase_parity, phase_ssm, phase_families, phase_encdec,
+                      phase_sched):
             t0 = time.perf_counter()
             phase(ctx)
             name = phase.__name__.removeprefix("phase_")
@@ -2102,7 +2476,8 @@ def main() -> int:
     rows = ctx["kernel_rows"]
     for r in rows:
         r.pop("shape")
-        # attention: the slot serve; ssd_scan: the zamba2 prefill; counts zeroed before each
+        # attention: the slot serve; ssd_scan: the zamba2 prefill; sched_scan: the sched
+        # phase's decisions; counts zeroed before each
         r["launches"] = ctx["launches"][r["name"]]
     say(json.dumps({"kernels": rows}))
     say(f"card: {ctx['card']}")

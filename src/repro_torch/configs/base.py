@@ -77,6 +77,10 @@ class ModelConfig:
         return 0
 
     @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    @property
     def ssm_d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 

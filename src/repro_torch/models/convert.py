@@ -38,6 +38,9 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, device: DeviceL
         return _tensor(node, dev)
 
     params = conv(np_params)
+    if cfg.is_encdec:
+        _check_encdec(params, cfg)
+        return params
     want = {"embed", "final_norm", "layers"} | ({"lm_head"} if not cfg.tie_embeddings else set())
     if cfg.family == "hybrid":
         want.add("shared_attn")
@@ -56,12 +59,41 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, device: DeviceL
         expect = (cfg.num_layers,)
     else:
         expect = hybrid_blocks(cfg)
+    _check_layer_axes(layers, expect, cfg)
+    return params
+
+
+def _check_layer_axes(layers: Dict, expect, cfg: ModelConfig, what: str = "layer") -> None:
     for leaf in _leaves(layers):
         lead = tuple(leaf.shape[: len(expect)])
         if lead != tuple(expect):
-            raise ValueError(f"parameter tree has layer axes {lead}, config {cfg.name} "
+            raise ValueError(f"parameter tree has {what} axes {lead}, config {cfg.name} "
                              f"has {tuple(expect)}")
-    return params
+
+
+def _check_encdec(params: Dict, cfg: ModelConfig) -> None:
+    """The encoder-decoder tree: its keys, an encoder layer's and a decoder
+    layer's sub-trees (self, cross, mlp), and the layer axes of both stacks."""
+    want = {"embed", "enc_layers", "dec_layers", "enc_final_norm", "final_norm"}
+    if not cfg.tie_embeddings:
+        want.add("lm_head")
+    if set(params) != want:
+        raise ValueError(f"parameter tree has keys {sorted(params)}, expected {sorted(want)}")
+    attn = {"wq", "wk", "wv", "wo"} | ({"q_norm", "k_norm"} if cfg.use_qk_norm else set())
+    mlp = {"w_gate", "w_up", "w_down"}
+    for name, n, subs, norms in (
+        ("enc_layers", cfg.enc_layers, dict(attn=attn, mlp=mlp), ("pre_attn_norm", "pre_mlp_norm")),
+        ("dec_layers", cfg.num_layers, dict(self_attn=attn, cross_attn=attn, mlp=mlp),
+         ("pre_self_norm", "pre_cross_norm", "pre_mlp_norm")),
+    ):
+        tree = params[name]
+        if set(tree) != {*subs, *norms}:
+            raise ValueError(f"{name} has keys {sorted(tree)}, expected {sorted({*subs, *norms})}")
+        for sub, keys in subs.items():
+            got = set(tree[sub]) if isinstance(tree[sub], dict) else set()
+            if got != keys:
+                raise ValueError(f"{name}.{sub} has keys {sorted(got)}, expected {sorted(keys)}")
+        _check_layer_axes(tree, (n,), cfg, f"{name} layer")
 
 
 def _leaves(tree: Dict):

@@ -11,19 +11,31 @@ Conventions, as in the JAX package
   (seq 1).
 
 Attention dispatch: on the card the hand-written CUDA kernels are the path
-(Sq > 1 goes to the prefill kernel, Sq == 1 to the decode kernel). On the
-CPU, ``impl="pallas"`` takes the kernels' wrappers (which run their plain
-versions on CPU tensors) and ``"auto"``/``"naive"`` take the plain paths:
-`naive_attention` below ``_NAIVE_ATTN_LIMIT`` query x KV rows,
-`blockwise_attention` above it (``impl="blockwise"`` forces it anywhere).
+for causal calls (Sq > 1 goes to the prefill kernel, Sq == 1 to the decode
+kernel). On the CPU, ``impl="pallas"`` takes the kernels' wrappers (which
+run their plain versions on CPU tensors) and ``"auto"``/``"naive"`` take
+the plain paths: `naive_attention` below ``_NAIVE_ATTN_LIMIT`` query x KV
+rows, `blockwise_attention` above it (``impl="blockwise"`` forces it
+anywhere).
 
 A sliding window can bind only when the KV length it is applied to exceeds
 it (every ``kv_pos < Skv <= window`` satisfies ``kv_pos > q_pos - window``
 for the queries of a cache of Skv rows), so a window that cannot bind is
 dropped and the call takes the kernels; one that binds takes the plain
 paths with the window in the mask, as every windowed call does in the
-reference. The choice reads shapes only. Packed segments and non-causal
-attention are outside the ported slices and raise NotImplementedError.
+reference. The choice reads shapes only.
+
+Non-causal attention (the encoder-decoder family's encoder and cross
+attention) and packed segments follow the reference's dispatch: any
+``q_seg`` forces the naive path; non-causal calls go naive or blockwise by
+Sq x Skv. Non-causal calls with Sq > 1 stay on these plain paths on the
+card too: the reference computes them outside any Pallas kernel as well,
+so this is its own route, not a fallback. One route is the port's own: a
+non-causal call with Sq == 1, no window and no ``q_seg`` goes to the decode
+kernel with ``kv_len = kv_valid`` (Skv where ``kv_valid`` is None), since
+that kernel masks only ``kv_pos < kv_len``, which is non-causal attention
+for one query (the reference never calls that kernel; the port sends its
+Sq == 1 causal calls there too).
 """
 from __future__ import annotations
 
@@ -103,15 +115,24 @@ def attention_mask(
     kv_len: int,
     kv_valid: Optional[torch.Tensor] = None,  # (B,) valid kv length
     window: int = 0,  # 0 = no window
+    causal: bool = True,
+    q_seg: Optional[torch.Tensor] = None,  # (B, Sq) packed-segment ids
+    kv_seg: Optional[torch.Tensor] = None,  # (B, Skv)
 ) -> torch.Tensor:
-    """Causal boolean mask (B, Sq, Skv), optionally windowed; True = attend."""
+    """Boolean mask (B, Sq, Skv); True = attend. The segment test applies
+    only when both ``q_seg`` and ``kv_seg`` are given, as in the reference."""
     kv_pos = torch.arange(kv_len, device=q_pos.device)[None, None, :]
     qp = q_pos[:, :, None]
-    mask = kv_pos <= qp
+    mask = torch.ones((q_pos.shape[0], q_pos.shape[1], kv_len), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask = mask & (kv_pos <= qp)
     if window:
         mask = mask & (kv_pos > qp - window)
     if kv_valid is not None:
         mask = mask & (kv_pos < kv_valid[:, None, None])
+    if q_seg is not None and kv_seg is not None:
+        mask = mask & (q_seg[:, :, None] == kv_seg[:, None, :])
     return mask
 
 
@@ -148,10 +169,12 @@ def blockwise_attention(
     logit_cap: float,
     scale: Optional[float] = None,
     kv_block: int = _KV_BLOCK,
+    *,
+    causal: bool = True,
 ) -> torch.Tensor:
-    """Flash-style exact causal attention: a loop over KV blocks with an
-    online softmax, never materialising (Sq, Skv); the plain path for long
-    inputs."""
+    """Flash-style exact attention, causal unless ``causal=False``: a loop
+    over KV blocks with an online softmax, never materialising (Sq, Skv);
+    the plain path for long inputs."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -171,8 +194,9 @@ def blockwise_attention(
         vblk = vblk.repeat_interleave(rep, dim=2)
         kv_pos = j0 + torch.arange(kv_block, device=q.device)
         scores = softcap(torch.einsum("bqhd,bkhd->bhqk", qf, kblk) * scale, logit_cap)
-        msk = (kv_pos[None, None, :] < kv_valid[:, None, None]) & (
-            kv_pos[None, None, :] <= q_pos[:, :, None])
+        msk = kv_pos[None, None, :] < kv_valid[:, None, None]
+        if causal:
+            msk = msk & (kv_pos[None, None, :] <= q_pos[:, :, None])
         if window:
             msk = msk & (kv_pos[None, None, :] > q_pos[:, :, None] - window)
         scores = torch.where(msk[:, None], scores, _NEG_INF)
@@ -202,18 +226,21 @@ def attention(
     kv_seg: Optional[torch.Tensor] = None,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Causal GQA attention, optionally windowed: the CUDA kernels on the
-    card, the plain paths or the kernels' plain versions on the CPU (see
-    the module docstring)."""
-    if not causal or q_seg is not None or kv_seg is not None:
-        raise NotImplementedError("non-causal attention and packed segments are not ported yet")
+    """GQA attention, optionally windowed, causal unless ``causal=False``,
+    optionally over packed segments: the CUDA kernels on the card, the plain
+    paths or the kernels' plain versions on the CPU (see the module
+    docstring)."""
     if impl not in ("auto", "naive", "pallas", "blockwise"):
         raise NotImplementedError(f"attention impl {impl!r} is not ported yet")
     b, sq = q.shape[0], q.shape[1]
     skv = k.shape[1]
     if window and skv <= window:
         window = 0  # cannot bind
-    if not window and impl != "blockwise" and (q.is_cuda or impl == "pallas"):
+    kernel = (
+        not window and impl != "blockwise" and q_seg is None
+        and (causal or sq == 1) and (q.is_cuda or impl == "pallas")
+    )
+    if kernel:
         kv_len = (
             kv_valid if kv_valid is not None
             else torch.full((b,), skv, dtype=torch.int32, device=q.device)
@@ -227,9 +254,12 @@ def attention(
             q.contiguous(), k, v, q_pos.to(torch.int32).contiguous(), kv_len,
             scale=scale, logit_cap=logit_cap,
         )
-    if impl == "blockwise" or (impl in ("auto", "pallas") and sq * skv > _NAIVE_ATTN_LIMIT):
-        return blockwise_attention(q, k, v, q_pos, kv_valid, window, logit_cap, scale)
-    mask = attention_mask(q_pos, skv, kv_valid, window)
+    if impl == "blockwise" or (
+        impl in ("auto", "pallas") and q_seg is None and sq * skv > _NAIVE_ATTN_LIMIT
+    ):
+        return blockwise_attention(q, k, v, q_pos, kv_valid, window, logit_cap, scale,
+                                   causal=causal)
+    mask = attention_mask(q_pos, skv, kv_valid, window, causal, q_seg, kv_seg)
     return naive_attention(q, k, v, mask, logit_cap, scale)
 
 

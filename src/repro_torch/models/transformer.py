@@ -57,9 +57,9 @@ _GLOBAL_WINDOW = 1 << 30  # the reference's "no window" of gemma2's global layer
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configurations the port does not serve yet."""
-    if cfg.family not in (*ATTN_FAMILIES, "ssm", "hybrid"):
+    if cfg.family not in (*ATTN_FAMILIES, "ssm", "hybrid", "encdec"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe, vlm, ssm and hybrid only)"
+            f"family {cfg.family!r} is not ported yet (dense, moe, vlm, ssm, hybrid and encdec)"
         )
     if cfg.family in ("ssm", "hybrid") and cfg.ssm_ngroups != 1:
         raise NotImplementedError(f"{cfg.name}: ssm_ngroups={cfg.ssm_ngroups} is not ported "
@@ -67,6 +67,15 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family == "hybrid" and cfg.num_layers % cfg.hybrid_period:
         raise ValueError(f"{cfg.name}: hybrid depth {cfg.num_layers} is not a multiple of "
                          f"the period {cfg.hybrid_period}")
+
+
+def _check_decoder(cfg: ModelConfig) -> None:
+    """`check_supported`, and refuse the encoder-decoder family, whose entry
+    points are in `repro_torch.models.encdec`."""
+    check_supported(cfg)
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: use repro_torch.models.encdec "
+                         "(or Model), not the decoder trunk")
 
 
 # ----------------------------------------------------------------------------
@@ -82,7 +91,8 @@ def _stacked(gen, n: int, shape, dtype, device) -> torch.Tensor:
     return out
 
 
-def _attn_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
+def _init_attn(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
+    """(n, ...) attention weights: wq, wk, wv, wo (and the qk-norm weights)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     attn = dict(
@@ -94,23 +104,30 @@ def _attn_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
     if cfg.use_qk_norm:
         attn["q_norm"] = torch.zeros((n, hd), dtype=dtype, device=dev)
         attn["k_norm"] = torch.zeros((n, hd), dtype=dtype, device=dev)
+    return attn
+
+
+def _init_mlp(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
+    """(n, ...) gated-MLP weights."""
+    d, f = cfg.d_model, cfg.d_ff
     return dict(
-        attn=attn,
+        w_gate=_stacked(gen, n, (d, f), dtype, dev),
+        w_up=_stacked(gen, n, (d, f), dtype, dev),
+        w_down=_stacked(gen, n, (f, d), dtype, dev),
+    )
+
+
+def _attn_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
+    d = cfg.d_model
+    return dict(
+        attn=_init_attn(gen, cfg, n, dtype, dev),
         pre_attn_norm=torch.zeros((n, d), dtype=dtype, device=dev),
         pre_mlp_norm=torch.zeros((n, d), dtype=dtype, device=dev),
     )
 
 
 def _dense_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
-    d, f = cfg.d_model, cfg.d_ff
-    return dict(
-        **_attn_layers(gen, cfg, n, dtype, dev),
-        mlp=dict(
-            w_gate=_stacked(gen, n, (d, f), dtype, dev),
-            w_up=_stacked(gen, n, (d, f), dtype, dev),
-            w_down=_stacked(gen, n, (f, d), dtype, dev),
-        ),
-    )
+    return dict(**_attn_layers(gen, cfg, n, dtype, dev), mlp=_init_mlp(gen, cfg, n, dtype, dev))
 
 
 def _moe_layers(gen, cfg: ModelConfig, n: int, dtype, dev) -> Dict:
@@ -144,7 +161,7 @@ def hybrid_blocks(cfg: ModelConfig) -> Tuple[int, int]:
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda") -> Dict:
     """Random weights with the JAX initializers' distributions, drawn from a
     `torch.Generator` seeded with ``seed`` on ``device``."""
-    check_supported(cfg)
+    _check_decoder(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -334,7 +351,7 @@ def prefill_step(
       ssm:    dict(conv (L, B, W-1, Cch), state (L, B, H, P, N))
       hybrid: (dict(conv, state) stacked ``(ns, per, ...)``,
                (k, v) stacked ``(ns, B, S, Hkv, Dh)``)"""
-    check_supported(cfg)
+    _check_decoder(cfg)
     x = _embed_inputs(params, inputs, cfg)
     b, s = x.shape[0], x.shape[1]
     dev = x.device
@@ -385,7 +402,7 @@ def decode_step(
     cache: Dict,
 ):
     """Single-token decode. Returns (logits (B, V), cache written in place)."""
-    check_supported(cfg)
+    _check_decoder(cfg)
     x = params["embed"][tokens]
     positions = positions.to(device=x.device, dtype=torch.int32)
     pos2 = positions[:, None]
@@ -433,7 +450,7 @@ def chunk_prefill_step(
     to keep the step free of device syncs). Attention families only, as in
     the reference, and never into a ring cache: the reference's chunk
     pairs its L layers with the ring's L/2 rows and fails (ROADMAP C6)."""
-    check_supported(cfg)
+    _check_decoder(cfg)
     if cfg.family not in ATTN_FAMILIES:
         raise NotImplementedError(f"chunked prefill is for attention families; {cfg.name} is "
                                   f"{cfg.family!r} (use prefill_step)")
@@ -570,7 +587,7 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
     cache of alternating local/global models longer than their window, the
     stacked recurrent cache, or both for hybrid. The conv leaf has the
     model's dtype (ROADMAP C3)."""
-    check_supported(cfg)
+    _check_decoder(cfg)
     hd = cfg.resolved_head_dim
     if cfg.family in ATTN_FAMILIES and _use_windowed_cache(cfg, max_len):
         half = cfg.num_layers // 2

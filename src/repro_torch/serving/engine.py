@@ -15,8 +15,9 @@ and a KV attach by synchronizing. Otherwise the schedulers would learn
 launch times instead of step times.
 
 Engine model families: the attention decoders (dense, moe and vlm), as the
-reference engine serves (DESIGN.md §engine-scope); prompts are tokens for
-every family. An alternating local/global model (gemma2) is served only at
+reference engine serves (DESIGN.md §engine-scope), and it refuses an
+encoder-decoder model when it is built; prompts are tokens for every family.
+An alternating local/global model (gemma2) is served only at
 ``max_len <= sliding_window``: above it the decode cache would be the ring,
 into which chunked prefill does not write (the reference's chunk fails
 there, ROADMAP C6), so the engine refuses such a configuration when it is
@@ -334,6 +335,11 @@ class DisaggServer:
         device: DeviceLike = "cuda",
     ):
         cfg = model.cfg
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name}: the engine serves the decoder-only attention families (dense, "
+                "moe, vlm; DESIGN.md §engine-scope); run an encoder-decoder model through "
+                "Model.prefill / Model.decode")
         if "k_local" in cache_struct(cfg, 1, ecfg.max_len):
             raise ValueError(
                 f"{cfg.name}: max_len={ecfg.max_len} exceeds sliding_window="

@@ -223,3 +223,57 @@ def test_head_dim_256_kernels_match_their_plain_versions(cuda, dtype):
         ref32 = _softmax_pv_f32(s, mask, vf, "bhk,bkhd->bhd")
         lanes = (outd.float() - ref32).flatten(1).norm(dim=1) / ref32.flatten(1).norm(dim=1)
         assert float(lanes.max()) <= BF16_DECODE_REL, f"decode cap {cap}: lanes {lanes.tolist()}"
+
+
+def test_sched_scan_kernels_equal_their_plain_versions(cuda):
+    """Both scheduler scans bit for bit against their plain versions, over
+    more slots than one tile (2048), with ties in the keys; the wrappers
+    refuse what the kernels do not take."""
+    from repro_torch.kernels.sched_scan.ops import fcfs_scan, slack_pack
+    from repro_torch.kernels.sched_scan.ref import fcfs_scan_ref, slack_pack_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = 5000
+    a = torch.sort(torch.randint(0, 400, (n,), generator=gen, device=cuda).float() / 32).values
+    d = torch.rand(n, generator=gen, device=cuda) * 0.01
+    t0 = torch.tensor([1.5], device=cuda)
+    n0 = (fcfs_scan.launches, slack_pack.launches)
+    assert torch.equal(fcfs_scan(a, d, t0), fcfs_scan_ref(a, d, t0))
+    seq = torch.sort(torch.randint(64, 300_000, (n,), generator=gen, device=cuda,
+                                   dtype=torch.int32)).values
+    act = torch.rand(n, generator=gen, device=cuda) < 0.9
+    be = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128, 256], dtype=torch.int32, device=cuda)
+    se = torch.tensor([512 << i for i in range(10)], dtype=torch.int32, device=cuda)
+    table = (0.005 + 2e-4 * be.float()[:, None] + 2.4e-7 * se.float()[None, :]).contiguous()
+    for s_min in (0.02, 0.06, -1.0):
+        args = (seq, act, torch.tensor([s_min], device=cuda), table, be, se)
+        sel, count = slack_pack(*args)
+        sel_r, count_r = slack_pack_ref(*args)
+        assert torch.equal(sel, sel_r) and torch.equal(count, count_r)
+    assert (fcfs_scan.launches, slack_pack.launches) == (n0[0] + 1, n0[1] + 3)
+    with pytest.raises(ValueError, match="float32"):
+        fcfs_scan(a.double(), d, t0)
+    with pytest.raises(ValueError, match="beyond"):
+        slack_pack(seq, act, t0, torch.zeros(300, 2, device=cuda), be, se)
+
+
+@pytest.mark.parametrize("kv_valid", [None, [4096, 17, 1, 300]])
+def test_one_query_non_causal_attention_takes_the_decode_kernel(cuda, kv_valid):
+    """The encoder-decoder's cross attention of a decode step (Sq == 1,
+    non-causal) on the decode kernel, kv_len = kv_valid or the cache length,
+    against the plain version in f32."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers import attention
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(4, 1, 16, 64, generator=gen, device=cuda)
+    k = torch.randn(4, 4096, 16, 64, generator=gen, device=cuda)
+    v = torch.randn(4, 4096, 16, 64, generator=gen, device=cuda)
+    kvl = None if kv_valid is None else torch.tensor(kv_valid, dtype=torch.int32, device=cuda)
+    n0 = decode_attention.launches
+    out = attention(q, k, v, torch.zeros(4, 1, dtype=torch.int32, device=cuda), kvl,
+                    causal=False)
+    assert decode_attention.launches == n0 + 1
+    lens = kvl if kvl is not None else torch.full((4,), 4096, dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(out[:, 0], decode_attention_ref(q[:, 0], k, v, lens),
+                               rtol=2e-5, atol=2e-5)
