@@ -42,7 +42,30 @@ Phases, each printed on its own lines:
            At the serving shapes two faults read off the plain version (the
            diagonal dropped, one chunk's S_in not carried) must exceed twice
            the limit, and bf16 is timed on both routes at B=2 and at the ssm
-           phase's B=4
+           phase's B=4. The prefill backward kernels (prefill_attention_bwd.cu)
+           against their plain backward: 14 sweep cases (ragged q_pos
+           offsets, kv_len short of the visible rows, every Dh, cap 50 at
+           Dh=256) and the training shapes of minicpm-2b (B=4 S=2048 36/36
+           Dh=64), llama3-8b (B=1 S=2048 32/8 Dh=128) and gemma2-9b (B=1
+           S=2048 16/8 Dh=256, cap 50), f32 within 2e-5 x max(1, max|ref|),
+           bf16 dq, dk, dv within BWD_BF16_REL (1e-2) in relative norm of the
+           plain backward in f32, where two faults planted in the plain
+           version (D dropped from dS; the cap's chain factor dropped) must
+           land beyond twice the limit; timed beside SDPA's backward
+  train    training on the card: one train step of llama3-8b-smoke and
+           minicpm-2b-smoke in f32 at 1 and 2 microbatches on the card (the
+           prefill kernels and their backward) against the CPU (loss within
+           2e-5, every grad leaf within 1e-4 in relative norm); a resume at
+           smoke size bit-identical to an uninterrupted run (3 steps, an
+           async checkpoint, a restore into fresh tensors, 1 step); then
+           minicpm-2b whole in bf16 (random weights from a seed):
+           SyntheticDataset(seq_len=2048, global_batch=8), 2 microbatches,
+           remat, 6 AdamW steps with WSD warm-up 2: every loss and grad norm
+           finite, the backward launched 80 times a step and the forward 160
+           (remat), the last loss below the first and the first batch's loss
+           lower after training; each step's time, tokens/s, model-FLOPs
+           share of the card's dense bf16 peak and peak memory are printed
+           (the global batch halves if the first step's peak passes 72 GB)
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
            policies, slot then paged KV; both attention kernels must launch
@@ -144,13 +167,15 @@ Every phase runs on every call. It imports nothing of JAX or of the JAX
 package, exits non-zero when there is no card or when run outside the
 repository, and prints the kernel table and the card line before the last
 line, which is the ``{"ok": true, ...}`` record. The table's launches are
-the slot serve's (attention), the zamba2 prefill's (SSD scan, whose row
+the slot serve's (attention), the minicpm-2b training run's (the prefill
+backward, timed at its shape), the zamba2 prefill's (SSD scan, whose row
 is timed at that prefill's shape, B=4 L=2048) and the sched phase's
 decisions (sched_scan, timed at 4096 slots), each counted from zero.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -188,6 +213,13 @@ DECODE_TILE_ROWS = 32  # BK in csrc/decode_attention.cu
 # are planted at every shape whose longest lane has more than one of them.
 ROW_FAULT_MAX_LEN = 1024
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device spin at the H100's clock (`_time_ms`)
+# bf16 prefill backward (dq, dk, dv), relative to the plain backward computed in
+# f32 from the same bf16 inputs (`_bwd_f32`): the kernels compute in f32 from
+# bf16 tiles and round P to bf16 before dV, so the reading is the output's own
+# rounding, some 2e-3. Dropping D from dS or the cap's chain factor moves dq
+# and dk by 0.2 and more at the checked shapes (a CPU reading at S=512), far
+# beyond twice the limit, which the kernels phase checks on the card.
+BWD_BF16_REL = 1e-2
 
 
 class SmokeFailure(Exception):
@@ -509,6 +541,7 @@ def phase_kernels(ctx) -> None:
             f"(tol {r['tol']}), f32 {r['max_abs_err_f32']:.3e} (tol {TOL['torch.float32']})"
             f"{rel} [{ctx['card']}]")
     rows.append(_ssd_checks(ctx, gen, flush))
+    rows.append(_bwd_rows(ctx, gen, flush))
     ctx["kernel_rows"] = rows
 
 
@@ -709,6 +742,204 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
         **_bound(flops, nbytes, "torch.bfloat16"),
         shape=f"B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh} bf16, kv_len {kv_len.tolist()}",
     )
+
+
+# ------------------------------------------------------- prefill backward
+def _bwd_f32(q, k, v, out, lse, dout, q_pos, kv_len, cap, fault=None):
+    """The plain backward of prefill attention in f32 from the same inputs
+    (what the bf16 backward kernels are held to in relative norm), or, with
+    ``fault``, the same with one term planted wrong: "D" drops D =
+    rowsum(dO * O) from dS, "cap" drops the cap's chain factor 1 - (s/cap)^2.
+    The faults show that `BWD_BF16_REL` catches such a kernel."""
+    import torch
+
+    from repro_torch.kernels.prefill_attention.ref import NEG_INF
+
+    q, k, v, out, dout = (t.float() for t in (q, k, v, out, dout))
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    kr, vr = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kr) / dh ** 0.5
+    if cap > 0.0:
+        s = cap * torch.tanh(s / cap)
+    kvp = torch.arange(skv, device=q.device)
+    mask = ((kvp[None, None, :] <= q_pos[:, :, None])
+            & (kvp[None, None, :] < kv_len[:, None, None]))[:, None]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout, vr)
+    d = (dout * out).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp if fault == "D" else dp - d)
+    del dp
+    if cap > 0.0 and fault != "cap":
+        ds = ds * torch.where(mask, 1.0 - (s / cap) ** 2, 0.0)
+    del s
+    ds = ds / dh ** 0.5
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q).reshape(b, skv, hkv, rep, dh).sum(3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout).reshape(b, skv, hkv, rep, dh).sum(3)
+    return dq, dk, dv
+
+
+def _bwd_inputs(gen, b, sq, skv, hq, hkv, dh, cap, dtype, offs=None, kv_lens=None):
+    """q, k, v, dO in ``dtype`` (q, k scaled by 3 under a cap, so it bites),
+    q_pos at offsets ``offs`` (the end of the prefix where None), kv_len."""
+    import torch
+
+    dev = torch.device("cuda")
+    sc = 3.0 if cap else 1.0
+    q, k = _randn(gen, (b, sq, hq, dh), dtype, sc), _randn(gen, (b, skv, hkv, dh), dtype, sc)
+    v, do = _randn(gen, (b, skv, hkv, dh), dtype), _randn(gen, (b, sq, hq, dh), dtype)
+    offs = (torch.full((b,), skv - sq, device=dev, dtype=torch.int32) if offs is None
+            else torch.tensor(offs, device=dev, dtype=torch.int32))
+    q_pos = (offs[:, None] + torch.arange(sq, device=dev, dtype=torch.int32)).contiguous()
+    kv_len = ((offs + sq).to(torch.int32) if kv_lens is None
+              else torch.tensor(kv_lens, device=dev, dtype=torch.int32))
+    return q, k, v, do, q_pos, kv_len
+
+
+def _bwd_check(gen, b, sq, skv, hq, hkv, dh, cap=0.0, offs=None, kv_lens=None,
+               faults=False) -> dict:
+    """The backward kernels against their plain version at one shape: f32
+    within 2e-5 x max(1, max|ref|), bf16 dq, dk, dv each within
+    `BWD_BF16_REL` in relative norm of the plain backward in f32; with
+    ``faults`` the planted faults of `_bwd_f32` must land beyond twice that
+    limit. Returns the readings and the bf16 inputs (for timing)."""
+    import torch
+
+    from repro_torch.kernels.prefill_attention.ops import (
+        prefill_attention_bwd,
+        prefill_attention_fwd,
+    )
+    from repro_torch.kernels.prefill_attention.ref import prefill_attention_bwd_ref
+
+    what = f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} cap={cap}"
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, q_pos, kv_len = _bwd_inputs(gen, b, sq, skv, hq, hkv, dh, cap, dtype, offs,
+                                                 kv_lens)
+        out, lse = prefill_attention_fwd(q, k, v, q_pos, kv_len, logit_cap=cap)
+        got = prefill_attention_bwd(q, k, v, out, lse, do, q_pos, kv_len, logit_cap=cap)
+        if dtype == torch.float32:
+            ref = prefill_attention_bwd_ref(q, k, v, out, lse, do, q_pos, kv_len, logit_cap=cap)
+            errs = [_max_err(g, r) / max(1.0, float(r.abs().max())) for g, r in zip(got, ref, strict=True)]
+            res["f32"] = max(errs)
+            check(res["f32"] <= TOL["torch.float32"], f"prefill_attention_bwd f32 {what}: "
+                  f"max abs err / max(1, max|ref|) of dq, dk, dv {errs}")
+            del ref
+        else:
+            ref = _bwd_f32(q, k, v, out, lse, do, q_pos, kv_len, cap)
+            rels = [_rel_err(g, r) for g, r in zip(got, ref, strict=True)]
+            res["bf16"] = max(rels)
+            check(res["bf16"] <= BWD_BF16_REL, f"prefill_attention_bwd bf16 {what}: relative "
+                  f"error of dq, dk, dv {rels} beyond {BWD_BF16_REL}")
+            res["max_abs_err"] = max(_max_err(g, r) for g, r in zip(got, ref, strict=True))
+            if faults:
+                for fault in ("D", "cap") if cap else ("D",):
+                    bad = _bwd_f32(q, k, v, out, lse, do, q_pos, kv_len, cap, fault)
+                    moved = min(_rel_err(x, r) for x, r in zip(bad[:2], ref[:2], strict=True))  # dq, dk
+                    res[f"fault_{fault}"] = moved
+                    check(moved > 2 * BWD_BF16_REL, f"prefill_attention_bwd {what}: the fault "
+                          f"{fault} moves dq, dk by {moved:.3e}, not clearly beyond "
+                          f"{BWD_BF16_REL}")
+                    del bad
+            res["inputs"] = (q, k, v, do, q_pos, kv_len, out, lse)
+            del ref
+    return res
+
+
+def _bwd_sweep(gen) -> None:
+    """The forward sweep's shapes for the backward, f32 and bf16: q_pos at
+    ragged offsets, kv_len cut short of the visible rows on the second of
+    each pair, every Dh of HEAD_DIMS, a cap of 50 at Dh = 256."""
+    import torch
+
+    worst = {"f32": 0.0, "bf16": 0.0}
+    for b, sq, skv, hq, hkv, dh, cap in [
+        (2, 128, 256, 4, 2, 64, 0.0), (1, 64, 64, 8, 8, 128, 0.0), (2, 100, 300, 6, 2, 32, 0.0),
+        (1, 256, 512, 4, 1, 128, 0.0), (3, 32, 160, 4, 2, 16, 0.0), (2, 96, 96, 4, 4, 80, 0.0),
+        (2, 100, 300, 16, 8, 256, 50.0),
+    ]:
+        offs = torch.randint(0, skv - sq + 1, (b,), generator=gen, device="cuda").tolist()
+        for kv_lens in (None, [max(1, o + sq - 7) for o in offs]):
+            r = _bwd_check(gen, b, sq, skv, hq, hkv, dh, cap, offs=offs, kv_lens=kv_lens)
+            worst = {k: max(v, r[k]) for k, v in worst.items()}
+    say(f"[kernels] prefill_attention_bwd sweep ok (14 cases: ragged q_pos offsets, kv_len past "
+        f"and short of the visible rows, every Dh of HEAD_DIMS, cap 50 at Dh=256): f32 max abs "
+        f"err / max(1, max|ref|) {worst['f32']:.3e} (limit {TOL['torch.float32']}), bf16 "
+        f"relative error {worst['bf16']:.3e} (limit {BWD_BF16_REL})")
+
+
+def _prefill_bwd_row(ctx, gen, flush, b, s, hq, hkv, dh, cap=0.0, tag="") -> dict:
+    """The backward kernels at one training shape (a whole causal sequence
+    of S tokens): checked in f32 and bf16 with the planted faults, bf16
+    timed after an L2 flush (per call and device alone) beside the plain
+    backward and SDPA's backward (flash, is_causal; uncapped under a cap)
+    as yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention_bwd
+    from repro_torch.kernels.prefill_attention.ref import prefill_attention_bwd_ref
+
+    r = _bwd_check(gen, b, s, s, hq, hkv, dh, cap, faults=True)
+    q, k, v, do, q_pos, kv_len, out, lse = r.pop("inputs")
+
+    def kernel():
+        prefill_attention_bwd(q, k, v, out, lse, do, q_pos, kv_len, logit_cap=cap)
+
+    def plain():
+        prefill_attention_bwd_ref(q, k, v, out, lse, do, q_pos, kv_len, logit_cap=cap)
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def lib():
+        torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    visible = b * s * (s + 1) // 2
+    flops = 5 * 2 * hq * dh * visible
+    nbytes = 2 * (4 * b * s * hq * dh + 4 * b * s * hkv * dh) + 4 * b * hq * s + 4 * (b * s + b)
+    row = dict(
+        name="prefill_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/prefill_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:213 (XLA's autodiff of the plain attention; the "
+                 "Pallas kernel has no gradient)",
+        max_abs_err=r["max_abs_err"], rel_err=r["bf16"], rel_limit=BWD_BF16_REL,
+        ms=_time_ms(kernel, iters=5, flush=flush),
+        device_ms=_time_ms(kernel, iters=5, flush=flush, device_only=True),
+        plain_ms=_time_ms(plain, iters=2, flush=flush),
+        library_ms=_time_ms(lib, iters=10, flush=flush),
+        library_device_ms=_time_ms(lib, iters=10, flush=flush, device_only=True),
+        **_bound(flops, nbytes, "torch.bfloat16"),
+        shape=f"B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh} bf16, causal" + (
+            f", logit cap {cap} (SDPA uncapped)" if cap else ""),
+    )
+    faults = ", ".join(f"{f} dropped {r[f'fault_{f}']:.3e}" for f in ("D", "cap")
+                       if f"fault_{f}" in r)
+    say(f"[kernels] prefill_attention_bwd{tag} at {row['shape']}: kernels {row['ms']:.4f} ms per "
+        f"call (device alone {row['device_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, sdpa "
+        f"backward {row['library_ms']:.4f} ms (device alone {row['library_device_ms']:.4f} ms), "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); f32 max abs err / max(1, "
+        f"max|ref|) {r['f32']:.3e} (limit {TOL['torch.float32']}); bf16 relative error "
+        f"{r['bf16']:.3e} (limit {BWD_BF16_REL}; planted faults, dq and dk moved by at least: "
+        f"{faults}) [{ctx['card']}]")
+    del q, k, v, do, out, lse, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return row
+
+
+def _bwd_rows(ctx, gen, flush) -> dict:
+    """The sweep, then the rows at minicpm-2b's training shape (the kernel
+    table's row: the train phase's main path), llama3-8b's (GQA 4:1, Dh=128)
+    and gemma2-9b's (Dh=256, cap 50)."""
+    _bwd_sweep(gen)
+    row = _prefill_bwd_row(ctx, gen, flush, 4, 2048, 36, 36, 64, tag=" (minicpm-2b)")
+    _prefill_bwd_row(ctx, gen, flush, 1, 2048, 32, 8, 128, tag=" (llama3-8b)")
+    _prefill_bwd_row(ctx, gen, flush, 1, 2048, 16, 8, 256, cap=50.0, tag=" (gemma2-9b)")
+    return row
 
 
 def _ssd_inputs(gen, b, l, h, p, n, dtype):
@@ -1023,7 +1254,8 @@ def phase_serve(ctx) -> None:
         f"in {time.perf_counter() - t0:.1f} s")
     slot_out, launches = _serve_once(model, params, smoke_engine_config(),
                                      smoke_requests(cfg.vocab_size), ctx, "slot")
-    ctx["launches"] = launches  # the main path's run, counts zeroed just before it
+    # the main path's run, counts zeroed just before it
+    ctx.setdefault("launches", {}).update(launches)
     torch.cuda.empty_cache()
     paged_out, _ = _serve_once(model, params, smoke_engine_config(page_size=64),
                                smoke_requests(cfg.vocab_size), ctx, "paged")
@@ -2442,6 +2674,288 @@ def phase_sched(ctx) -> None:
     ctx["kernel_rows"].append(row)
 
 
+# ---------------------------------------------------------------------- train
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 6, 2048, 8, 2
+# Picked by a sweep of this run on an H100 (PERF.md §6): at 3e-5 to 3e-4
+# five updates move the loss less than its spread from batch to batch (~0.02), at
+# 1e-3 and above the loss spikes by the sixth step; 6e-4 learns without a spike.
+TRAIN_LR = 6e-4
+TRAIN_PEAK_LIMIT = 72e9  # bytes of device memory; above it the global batch is halved
+TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 2e-5, 1e-4  # card against CPU, f32, as the CPU tests
+PEAK_SOURCE = "989 TFLOP/s dense bf16, NVIDIA H100 SXM data sheet"
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        out.update(_flat_tree(v, f"{prefix}{k}/") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+def _train_launches():
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention, prefill_attention_bwd
+
+    return prefill_attention.launches, prefill_attention_bwd.launches
+
+
+def _zero_train_launches():
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention, prefill_attention_bwd
+
+    prefill_attention.launches = prefill_attention_bwd.launches = 0
+
+
+def _train_parity(ctx) -> None:
+    """llama3-8b-smoke and minicpm-2b-smoke in f32: the loss and gradients of
+    one train step at 1 and 2 microbatches on the card (the kernels) against
+    the CPU (the plain versions), from the same parameters and batch, and
+    the parameters after the AdamW update."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.optimizer import OptimizerConfig, adamw_update, init_opt_state
+    from repro_torch.training.train_step import loss_and_grad_accum
+
+    for arch in ("llama3-8b-smoke", "minicpm-2b-smoke"):
+        cfg = get_config(arch).replace(dtype="float32")
+        model = build_model(cfg)
+        batch = SyntheticDataset(cfg, DataConfig(seq_len=64, global_batch=4)).batch_at(0)
+        for n_micro in (1, 2):
+            runs = {}
+            for dev in ("cpu", ctx["device"]):
+                params = _tree_to(model.init(0, device="cpu"), dev)
+                tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+                _zero_train_launches()
+                loss, grads = loss_and_grad_accum(model, params, tb, n_micro)
+                launched = _train_launches()
+                params, _, _ = adamw_update(OptimizerConfig(), params, grads,
+                                            init_opt_state(params))
+                runs[dev] = (float(loss), _tree_to(grads, "cpu"), _tree_to(params, "cpu"),
+                             launched)
+            (lc, gc, pc, _), (lg, gg, pg, launched) = runs["cpu"], runs[ctx["device"]]
+            check(min(launched) > 0, f"[train] {arch} n_micro={n_micro}: the prefill kernels "
+                  f"did not launch on the card (forward, backward {launched})")
+            check(abs(lc - lg) <= TRAIN_LOSS_TOL, f"[train] {arch} n_micro={n_micro}: loss on "
+                  f"the card {lg} against the CPU's {lc}")
+            gcf, ggf = _flat_tree(gc), _flat_tree(gg)
+            rel = {k: float((ggf[k].float() - g.float()).norm() / max(float(g.float().norm()),
+                                                                       1e-6))
+                   for k, g in gcf.items()}
+            worst = max(rel, key=rel.get)
+            check(rel[worst] <= TRAIN_GRAD_REL, f"[train] {arch} n_micro={n_micro}: grad "
+                  f"{worst} relative error {rel[worst]:.3e} beyond {TRAIN_GRAD_REL}")
+            perr = max(_max_err(_flat_tree(pg)[k], p) for k, p in _flat_tree(pc).items())
+            check(perr <= 2e-4, f"[train] {arch} n_micro={n_micro}: params after the step "
+                  f"differ by {perr:.3e}")
+            say(f"[train] parity {arch} f32 n_micro={n_micro}: loss card {lg:.6f} cpu {lc:.6f} "
+                f"(tol {TRAIN_LOSS_TOL}); worst grad leaf {worst} relative error "
+                f"{rel[worst]:.3e} (limit {TRAIN_GRAD_REL}); params after AdamW max abs diff "
+                f"{perr:.3e}; kernel launches on the card forward {launched[0]} backward "
+                f"{launched[1]} [{ctx['card']}]")
+
+
+def _train_resume(ctx) -> None:
+    """At smoke size on the card (llama3-8b-smoke, f32, 2 microbatches):
+    three steps, a checkpoint, a restore into fresh tensors and a fourth
+    step give the parameters and moments of four uninterrupted steps, bit
+    for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_config("llama3-8b-smoke").replace(dtype="float32")
+    model = build_model(cfg)
+    ds = SyntheticDataset(cfg, DataConfig(seq_len=64, global_batch=4))
+    step_fn = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=2, stable_steps=10,
+                                                     decay_steps=2), n_micro=2)
+
+    def run(params, opt, steps):
+        for i in steps:
+            batch = {k: torch.from_numpy(v).to(ctx["device"]) for k, v in ds.batch_at(i).items()}
+            params, opt, _ = step_fn(params, opt, batch)
+        return params, opt
+
+    pa = model.init(0, device=ctx["device"])
+    pa, oa = run(pa, init_opt_state(pa), range(4))
+    pb = model.init(0, device=ctx["device"])
+    pb, ob = run(pb, init_opt_state(pb), range(3))
+    with tempfile.TemporaryDirectory() as d:
+        ck = CheckpointManager(d)
+        ck.save(3, {"params": pb, "opt": ob}, async_=True)
+        ck.join()
+        fresh = model.init(1, device=ctx["device"])
+        restored, step = ck.restore({"params": fresh, "opt": init_opt_state(fresh)})
+    pr, orr = run(restored["params"], restored["opt"], range(step, 4))
+    check(step == 3 and int(orr.step) == int(oa.step) == 4, f"[train] resume: step {step}")
+    for name, tree_a, tree_r in (("params", pa, pr), ("m", oa.m, orr.m), ("v", oa.v, orr.v)):
+        fa, fr = _flat_tree(tree_a), _flat_tree(tree_r)
+        bad = [k for k in fa if not torch.equal(fa[k], fr[k])]
+        check(not bad, f"[train] resume: {name} leaves {bad} differ from the uninterrupted run")
+    say(f"[train] resume {cfg.name} f32: 3 steps, checkpoint (async save, restore into fresh "
+        f"tensors), 1 step: params, m and v bit-identical to 4 uninterrupted steps "
+        f"[{ctx['card']}]")
+
+
+def _train_full(ctx, global_batch: int) -> dict:
+    """minicpm-2b whole in bf16 (random weights from seed 0): TRAIN_STEPS
+    AdamW steps at ``global_batch`` x TRAIN_SEQ tokens, TRAIN_MICRO
+    microbatches, remat, WSD warm-up 2. Returns the run's readings."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=ctx["device"])
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    say(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.4f} B random parameters (seed 0; "
+        f"count_params {cfg.count_params() / 1e9:.4f} B) and AdamW state in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ds = SyntheticDataset(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=global_batch))
+    step_fn = make_train_step(model, OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                                                     stable_steps=TRAIN_STEPS, decay_steps=1),
+                              n_micro=TRAIN_MICRO)
+    tokens = global_batch * TRAIN_SEQ
+    hd = cfg.resolved_head_dim
+    # model FLOPs of a step: 6 N per token, plus causal attention's 6 L H Dh S
+    # per token (forward and backward, no recompute counted)
+    flops = tokens * (6 * cfg.count_params() + 6 * cfg.num_layers * cfg.num_heads * hd * TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_train_launches()
+    losses, out = [], dict(step_s=[], peak=[])
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(ctx["device"]) for k, v in ds.batch_at(i).items()}
+        before = _train_launches()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - ts
+        fwd, bwd = (a - b for a, b in zip(_train_launches(), before, strict=True))
+        loss, gnorm, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        peak = torch.cuda.max_memory_allocated()
+        losses.append(loss)
+        out["step_s"].append(dt)
+        out["peak"].append(peak)
+        say(f"[train] {cfg.name} step {i}: loss {loss:.4f} grad_norm {gnorm:.4f} lr {lr:.3e}; "
+            f"{dt:.3f} s, {tokens / dt:.0f} tokens/s, model FLOPs {flops / dt / 1e12:.1f} "
+            f"TFLOP/s = {flops / dt / 989e12:.4f} of the peak ({PEAK_SOURCE}); prefill kernel "
+            f"launches forward {fwd} backward {bwd}; peak memory {peak / 1e9:.2f} GB "
+            f"[{ctx['card']}]")
+        check(all(map(math.isfinite, (loss, gnorm))), f"[train] step {i}: loss {loss}, grad "
+              f"norm {gnorm}")
+        want = cfg.num_layers * TRAIN_MICRO
+        check(bwd == want and fwd == 2 * want, f"[train] step {i}: forward {fwd} and backward "
+              f"{bwd} launches, expected {2 * want} and {want} (remat runs each forward twice)")
+        if i == 0 and peak > TRAIN_PEAK_LIMIT:
+            break
+    out.update(losses=losses, launches=_train_launches(), tokens=tokens, flops=flops)
+    del m
+    if len(losses) == TRAIN_STEPS:  # the first batch again, after training (batch-free signal)
+        first = {k: torch.from_numpy(v).to(ctx["device"]) for k, v in ds.batch_at(0).items()}
+        with torch.no_grad():
+            out["first_after"] = sum(
+                float(model.loss(params, {k: v.chunk(TRAIN_MICRO)[i] for k, v in first.items()}))
+                for i in range(TRAIN_MICRO)) / TRAIN_MICRO
+        out["profile"] = _train_profile(step_fn, params, opt, ds, ctx["device"])
+    del params, opt
+    return out
+
+
+def _train_profile(step_fn, params, opt, ds, device) -> dict:
+    """One more step (the next batch) under torch.profiler: the step's wall,
+    the device's busy time and its kernels' time by group
+    (`launch.profile.kernel_group`). The profiler's cost stretches the
+    wall, so the idle share is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile import device_kernels, kernel_group
+
+    batch = {k: torch.from_numpy(v).to(device) for k, v in ds.batch_at(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups: dict = {}
+    names: dict = {}
+    for name, k0, k1 in device_kernels(prof.events()):
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + (k1 - k0) / 1e3
+        names[name] = names.get(name, 0.0) + (k1 - k0) / 1e3
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall_ms=1e3 * wall, busy_ms=sum(groups.values()), groups=groups, top=top)
+
+
+def phase_train(ctx) -> None:
+    """Training on the card: card-vs-CPU parity at smoke size, a
+    bit-identical resume from a checkpoint, then minicpm-2b whole."""
+    import torch
+
+    _free()
+    _train_parity(ctx)
+    _train_resume(ctx)
+    _free()
+    gb = TRAIN_BATCH
+    r = _train_full(ctx, gb)
+    if len(r["losses"]) < TRAIN_STEPS:
+        say(f"[train] peak memory {r['peak'][0] / 1e9:.2f} GB after the first step at global "
+            f"batch {gb}, above {TRAIN_PEAK_LIMIT / 1e9:.0f} GB: the global batch is halved")
+        _free()
+        gb //= 2
+        r = _train_full(ctx, gb)
+    _free()
+    losses = r["losses"]
+    check(losses[-1] < losses[0], f"[train] the loss did not fall: {losses}")
+    check(r["first_after"] < losses[0], f"[train] the first batch's loss rose from "
+          f"{losses[0]} to {r['first_after']} over {TRAIN_STEPS} steps")
+    steady = r["step_s"][1:]
+    mean = sum(steady) / len(steady)
+    ctx.setdefault("launches", {})["prefill_attention_bwd"] = r["launches"][1]
+    say(f"[train] {TRAIN_ARCH} whole, bf16, global batch {gb} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_MICRO} microbatches, remat, lr {TRAIN_LR}: {TRAIN_STEPS} steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (the first batch's {losses[0]:.4f} -> "
+        f"{r['first_after']:.4f} after training); steps 1-{TRAIN_STEPS - 1} mean {mean:.3f} s, "
+        f"{r['tokens'] / mean:.0f} tokens/s, model FLOPs share {r['flops'] / mean / 989e12:.4f} "
+        f"of the peak ({PEAK_SOURCE}); first step {r['step_s'][0]:.3f} s; peak memory "
+        f"{max(r['peak']) / 1e9:.2f} GB ({torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
+        f" GB on the card); prefill kernel launches forward {r['launches'][0]} backward "
+        f"{r['launches'][1]} [{ctx['card']}]")
+    pr = r["profile"]
+    say(f"[train] one more step under torch.profiler: wall {pr['wall_ms']:.1f} ms, device busy "
+        f"{pr['busy_ms']:.1f} ms (idle {100 * (1 - pr['busy_ms'] / pr['wall_ms']):.1f}% of the "
+        f"profiled wall, an upper bound); by kernel group: " + ", ".join(
+            f"{g} {ms:.1f} ms ({100 * ms / pr['busy_ms']:.1f}%)"
+            for g, ms in sorted(pr["groups"].items(), key=lambda kv: -kv[1]))
+        + f" [{ctx['card']}]")
+    say("[train] top kernels of the profiled step: " + "; ".join(
+        f"{name[:70]} {ms:.1f} ms" for name, ms in pr["top"]))
+
 # ---------------------------------------------------------------------- main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2462,9 +2976,9 @@ def main() -> int:
     ctx: dict = {}
     t_start = time.perf_counter()
     try:
-        for phase in (phase_device, phase_build, phase_kernels, phase_serve, phase_fleet,
-                      phase_eval, phase_parity, phase_ssm, phase_families, phase_encdec,
-                      phase_sched):
+        for phase in (phase_device, phase_build, phase_kernels, phase_train, phase_serve,
+                      phase_fleet, phase_eval, phase_parity, phase_ssm, phase_families,
+                      phase_encdec, phase_sched):
             t0 = time.perf_counter()
             phase(ctx)
             name = phase.__name__.removeprefix("phase_")
@@ -2476,8 +2990,9 @@ def main() -> int:
     rows = ctx["kernel_rows"]
     for r in rows:
         r.pop("shape")
-        # attention: the slot serve; ssd_scan: the zamba2 prefill; sched_scan: the sched
-        # phase's decisions; counts zeroed before each
+        # attention: the slot serve; prefill_attention_bwd: the minicpm-2b training run;
+        # ssd_scan: the zamba2 prefill; sched_scan: the sched phase's decisions; counts
+        # zeroed before each
         r["launches"] = ctx["launches"][r["name"]]
     say(json.dumps({"kernels": rows}))
     say(f"card: {ctx['card']}")

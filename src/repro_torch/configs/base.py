@@ -1,5 +1,5 @@
 """Model configuration schema (a copy of ``repro.configs.base``; of the
-derived counts only those the model code reads are copied).
+derived counts, those the model code and the parameter counts read).
 
 Every assigned architecture is expressed as a ``ModelConfig``, a frozen
 dataclass, so the port reads the same architectures as the reference.
@@ -96,6 +96,68 @@ class ModelConfig:
         )
         # round up to a multiple of 8 for tiling friendliness
         return max(8, ((cap + 7) // 8) * 8)
+
+    # -------------------------------------------------------------- param math
+    def count_params(self) -> int:
+        """Analytic parameter count (embedding + trunk + head).
+
+        Used for MODEL_FLOPS = 6*N*D roofline bookkeeping; close to exact for
+        the simplified blocks we implement.
+        """
+        d, hd = self.d_model, self.resolved_head_dim
+        n_q = self.num_heads * hd
+        n_kv = self.num_kv_heads * hd
+
+        def attn_params() -> int:
+            return d * n_q + 2 * d * n_kv + n_q * d
+
+        def dense_mlp() -> int:
+            return 3 * d * self.d_ff  # SwiGLU: gate, up, down
+
+        def moe_mlp() -> int:
+            return self.num_experts * 3 * d * self.d_ff + d * self.num_experts
+
+        def ssm_params() -> int:
+            di = self.ssm_d_inner
+            n = self.ssm_state_dim
+            g = self.ssm_ngroups
+            conv_ch = di + 2 * g * n
+            in_proj = d * (2 * di + 2 * g * n + self.ssm_num_heads)
+            conv = conv_ch * self.ssm_conv_width
+            out_proj = di * d
+            extra = self.ssm_num_heads * 2 + di  # A, D, norm
+            return in_proj + conv + out_proj + extra
+
+        total = self.vocab_size * d  # embedding
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+
+        norms = 2 * d  # per layer (pre-attn + pre-mlp), approximated below
+
+        if self.family in ("dense", "vlm"):
+            total += self.num_layers * (attn_params() + dense_mlp() + norms)
+        elif self.family == "moe":
+            total += self.num_layers * (attn_params() + moe_mlp() + norms)
+        elif self.family == "ssm":
+            total += self.num_layers * (ssm_params() + norms)
+        elif self.family == "hybrid":
+            total += self.num_layers * (ssm_params() + norms)
+            n_shared = 1  # one shared attention+mlp block (zamba2-style)
+            total += n_shared * (attn_params() + dense_mlp() + norms)
+        elif self.family == "encdec":
+            # encoder self-attn + mlp; decoder self + cross + mlp
+            total += self.enc_layers * (attn_params() + dense_mlp() + norms)
+            total += self.num_layers * (2 * attn_params() + dense_mlp() + 3 * d)
+        total += d  # final norm
+        return int(total)
+
+    def count_active_params(self) -> int:
+        """Active params per token (MoE: only top-k experts count)."""
+        if self.family != "moe":
+            return self.count_params()
+        d = self.d_model
+        inactive = (self.num_experts - self.experts_per_token) * 3 * d * self.d_ff
+        return int(self.count_params() - self.num_layers * inactive)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -20,7 +20,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("prefill_attention", "decode_attention", "ssd_scan", "sched_scan")
+KERNELS = ("prefill_attention", "prefill_attention_bwd", "decode_attention", "ssd_scan",
+           "sched_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

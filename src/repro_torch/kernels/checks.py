@@ -41,3 +41,16 @@ def ptr(t: torch.Tensor) -> int:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_no_grad(kernel: str, why: str, **tensors) -> None:
+    """A kernel writes into a fresh tensor that autograd cannot see through:
+    refuse, under grad mode, any input that requires grad, so a gradient is
+    never dropped silently. A call through the kernel's
+    `torch.autograd.Function` passes (its forward runs with grad mode off);
+    ``why`` says what carries the gradient instead, or why none does."""
+    if torch.is_grad_enabled():
+        for name, t in tensors.items():
+            if t is not None and t.requires_grad:
+                raise RuntimeError(f"{kernel}: {name} requires grad, but the kernel carries no "
+                                   f"gradient ({why}); call it under torch.no_grad()")

@@ -86,8 +86,9 @@ template <int DH>
 __global__ void __launch_bounds__(NT)
 prefill_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int* __restrict__ q_pos,
-                      const int* __restrict__ kv_len, float* __restrict__ out, int Sq, int Skv,
-                      int Hq, int Hkv, float scale, float cap) {
+                      const int* __restrict__ kv_len, float* __restrict__ out,
+                      float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, float scale,
+                      float cap) {
   constexpr int LDQ = DH + 1, LDK = DH + 1, LDV = DH, LDP = BK + 1;
   constexpr int EPT = DH / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -220,6 +221,8 @@ prefill_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
       float* o = out + (((int64_t)b * Sq + q0 + row) * Hq + h) * DH;
 #pragma unroll
       for (int e = 0; e < EPT; ++e) o[tx + 16 * e] = acc[i][e] / denom;
+      if (lse != nullptr && tx == 0)
+        lse[((int64_t)b * Hq + h) * Sq + q0 + row] = m[i] + logf(denom);
     }
   }
 }
@@ -227,7 +230,7 @@ prefill_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* q_pos, const void* kv_len,
-           void* out, int B, int Sq, int Skv, int Hq, int Hkv, float scale, float cap,
+           void* out, void* lse, int B, int Sq, int Skv, int Hq, int Hkv, float scale, float cap,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static bool attr_set = false;
@@ -241,7 +244,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
   prefill_attention_f32<DH><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(kv_len), static_cast<float*>(out),
-      Sq, Skv, Hq, Hkv, scale, cap);
+      static_cast<float*>(lse), Sq, Skv, Hq, Hkv, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -286,8 +289,9 @@ template <int DH>
 __global__ void __launch_bounds__(NT, 1)
 prefill_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const int* __restrict__ q_pos,
-                        const int* __restrict__ kv_len, bf16* __restrict__ out, int Sq, int Skv,
-                        int Hq, int Hkv, float scale, float cap) {
+                        const int* __restrict__ kv_len, bf16* __restrict__ out,
+                        float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, float scale,
+                        float cap) {
   constexpr int BK = bk_of<DH>();
   constexpr int TILE = BK * DH;                // elements of one K or V tile
   constexpr uint32_t GROUP = DH / 8 * 128;     // bytes between 8-row groups of a tile
@@ -527,13 +531,18 @@ prefill_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < NO; ++i)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
             __floats2bfloat162_rn(o[4 * i + 2 * r] / denom, o[4 * i + 2 * r + 1] / denom);
+      if (lse != nullptr && lane % 4 == 0) {  // m is in base 2: lse = (m + log2 l) ln 2
+        const int R = R0 + row;
+        lse[((int64_t)b * Hq + (int64_t)hk * qpk + R % qpk) * Sq + R / qpk] =
+            (m[r] + log2f(denom)) * 0.6931471805599453f;
+      }
     }
   }
 }
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const void* q_pos, const void* kv_len,
-           void* out, int B, int Sq, int Skv, int Hq, int Hkv, float scale, float cap,
+           void* out, void* lse, int B, int Sq, int Skv, int Hq, int Hkv, float scale, float cap,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static bool attr_set = false;
@@ -547,7 +556,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
   prefill_attention_wgmma<DH><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(q_pos), static_cast<const int*>(kv_len), static_cast<bf16*>(out),
-      Sq, Skv, Hq, Hkv, scale, cap);
+      static_cast<float*>(lse), Sq, Skv, Hq, Hkv, scale, cap);
   return (int)cudaGetLastError();
 }
 
@@ -557,25 +566,28 @@ int launch(const void* q, const void* k, const void* v, const void* q_pos, const
 
 // q (B, Sq, Hq, Dh), k/v (B, Skv, Hkv, Dh), q_pos (B, Sq) int32, kv_len (B,)
 // int32, out (B, Sq, Hq, Dh); all contiguous, on the stream's device; Dh in
-// {16, 32, 64, 80, 128, 256}. Each returns the launch's cudaError_t.
+// {16, 32, 64, 80, 128, 256}. lse, when not null, receives each query row's
+// log-sum-exp of its masked, capped scores, (B, Hq, Sq) f32 in natural log:
+// what the backward kernels (prefill_attention_bwd.cu) recompute P from; the
+// serving path passes null. Each returns the launch's cudaError_t.
 extern "C" int repro_prefill_attention_f32(const void* q, const void* k, const void* v,
                                            const void* q_pos, const void* kv_len, void* out,
-                                           int B, int Sq, int Skv, int Hq, int Hkv, int Dh,
+                                           void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int Dh,
                                            float scale, float cap, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   return with_head_dim(Dh, [&](auto dh) {
-    return scalar::launch<decltype(dh)::value>(q, k, v, q_pos, kv_len, out, B, Sq, Skv, Hq, Hkv,
+    return scalar::launch<decltype(dh)::value>(q, k, v, q_pos, kv_len, out, lse, B, Sq, Skv, Hq, Hkv,
                                                scale, cap, static_cast<cudaStream_t>(stream));
   });
 }
 
 extern "C" int repro_prefill_attention_bf16(const void* q, const void* k, const void* v,
                                             const void* q_pos, const void* kv_len, void* out,
-                                            int B, int Sq, int Skv, int Hq, int Hkv, int Dh,
+                                            void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int Dh,
                                             float scale, float cap, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   return with_head_dim(Dh, [&](auto dh) {
-    return tc::launch<decltype(dh)::value>(q, k, v, q_pos, kv_len, out, B, Sq, Skv, Hq, Hkv, scale,
+    return tc::launch<decltype(dh)::value>(q, k, v, q_pos, kv_len, out, lse, B, Sq, Skv, Hq, Hkv, scale,
                                            cap, static_cast<cudaStream_t>(stream));
   });
 }

@@ -21,6 +21,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.checks import (
     DTYPE_CODE,
     HEAD_DIMS,
+    check_no_grad,
     check_shape,
     check_tensors,
     ptr,
@@ -60,6 +61,8 @@ def decode_attention(
     """One query token per sequence over its KV cache: (B,Hq,Dh) -> (B,Hq,Dh)."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len, scale=scale, logit_cap=logit_cap)
+    check_no_grad(_K, "decode attention serves; training attends through prefill_attention",
+                  q=q, k=k, v=v)
     if q.device.type != "cuda":
         raise ValueError(f"{_K}: unsupported device {q.device}")
     if not (q.dim() == 3 and k.dim() == 4):

@@ -16,12 +16,20 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.checks import check_shape, check_tensors, ptr, require, stream_ptr
+from repro_torch.kernels.checks import (
+    check_no_grad,
+    check_shape,
+    check_tensors,
+    ptr,
+    require,
+    stream_ptr,
+)
 from repro_torch.kernels.sched_scan.ref import fcfs_scan_ref, slack_pack_ref
 
 _K = "sched_scan"
 MAX_LUT = 4096  # NB * NS entries of the step-time table (MAX_LUT in the source)
 MAX_EDGES = 256  # bucket edges per axis
+_NO_GRAD = "a scheduling decision has no gradient"
 
 
 def _lib() -> ctypes.CDLL:
@@ -56,6 +64,7 @@ def fcfs_scan(a_s: torch.Tensor, d_s: torch.Tensor, t0: torch.Tensor) -> torch.T
     f32 tensor -> (N,) f32 finish times ``t_i = max(t_{i-1}, a_i) + d_i``."""
     if _on_cpu("fcfs_scan", a_s):
         return fcfs_scan_ref(a_s, d_s, t0)
+    check_no_grad(f"{_K}.fcfs_scan", _NO_GRAD, a_s=a_s, d_s=d_s, t0=t0)
     n = a_s.shape[0]
     require(a_s.dim() == 1 and n >= 1, f"{_K}.fcfs_scan: a_s must be (N,), N >= 1")
     for name, t in (("a_s", a_s), ("d_s", d_s), ("t0", t0)):
@@ -82,6 +91,7 @@ def slack_pack(
     int32)."""
     if _on_cpu("slack_pack", seq_s):
         return slack_pack_ref(seq_s, act_s, s_min, table, bsz_edges, seq_edges)
+    check_no_grad(f"{_K}.slack_pack", _NO_GRAD, s_min=s_min, table=table)
     n = seq_s.shape[0]
     require(seq_s.dim() == 1 and n >= 1, f"{_K}.slack_pack: seq_s must be (N,), N >= 1")
     require(table.dim() == 2, f"{_K}.slack_pack: table must be (NB, NS)")

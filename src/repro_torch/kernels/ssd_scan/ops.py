@@ -29,6 +29,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import (
     DTYPE_CODE,
+    check_no_grad,
     check_shape,
     check_tensors,
     ptr,
@@ -98,6 +99,9 @@ def ssd(
     q = min(chunk, l)
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None], q, init_state)
+    check_no_grad(_K, "no backward kernel for the SSD scan yet, ROADMAP A10b: the ssm and "
+                  "hybrid families train on the CPU", x=x, dt=dt, A=A, B=Bm, C=Cm,
+                  init_state=init_state)
     require(x.device.type == "cuda", f"{_K}: unsupported device {x.device}")
     require(x.dtype in DTYPE_CODE, f"{_K}: dtype {x.dtype} not supported")
     require(Bm.dtype == x.dtype and Cm.dtype == x.dtype, f"{_K}: x, B, C dtypes differ")

@@ -39,6 +39,7 @@ from repro_torch.serving.engine import DisaggServer
 from repro_torch.serving.session import ServeSession
 
 _GROUPS = (
+    ("prefill_attention_bwd", ("prefill_bwd_",)),
     ("prefill_attention", ("prefill_attention_wgmma", "prefill_attention_f32")),
     ("decode_attention", ("decode_split", "decode_combine")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")),
@@ -49,7 +50,8 @@ _GROUPS = (
 _LABELS = ("prefill_chunk", "decode_step")
 
 
-def _group(name: str) -> str:
+def kernel_group(name: str) -> str:
+    """The group of a device kernel's name, "other" where none matches."""
     low = name.lower()
     for group, keys in _GROUPS:
         if any(k in low for k in keys):
@@ -136,7 +138,7 @@ def main(argv=None) -> None:
     busy_us = sum(k1 - k0 for _, k0, k1 in kernels)
     groups, by_name = defaultdict(float), defaultdict(lambda: [0.0, 0])
     for name, k0, k1 in kernels:
-        groups[_group(name)] += k1 - k0
+        groups[kernel_group(name)] += k1 - k0
         by_name[name][0] += k1 - k0
         by_name[name][1] += 1
     card = "cpu"
@@ -168,7 +170,7 @@ def main(argv=None) -> None:
     print(f"[profile] device outside every range {outside / 1e3:.3f} ms, "
           f"{100 * outside / max(busy_us, 1e-9):.1f}% of busy")
     for group in ("prefill_attention", "decode_attention"):
-        attn = [k for k in kernels if _group(k[0]) == group]
+        attn = [k for k in kernels if kernel_group(k[0]) == group]
         split, _, rest = range_device_time(prof.events(), attn)
         print(f"[profile] {group} by range: " + ", ".join(
             f"{label} {split[label] / 1e3:.3f} ms" for label in _LABELS)

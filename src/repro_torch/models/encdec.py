@@ -8,6 +8,7 @@ output; decode caches default to a fixed encoder memory of
 `DECODE_ENC_LEN` rows, the reference's decode shape.
 
 Entry points (shape-polymorphic over batch):
+  forward_train(params, src, tgt, cfg)                        -> logits (B, S_tgt, V)
   prefill_step(params, src, tgt, cfg, src_valid, tgt_valid) -> (last logits (B, V), kv)
   decode_step(params, tokens, positions, cfg, cache, enc_valid) -> (logits (B, V), cache)
   handoff(cfg, kv, cache_or_max_len)                           -> decode cache
@@ -57,6 +58,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.transformer import (
     _attn_qkv,
+    _remat,
     _init_attn,
     _init_mlp,
     check_supported,
@@ -205,8 +207,28 @@ def _dec_layer_apply(
 # ----------------------------------------------------------------------------
 
 def forward_train(params: Dict, src: torch.Tensor, tgt: torch.Tensor, cfg: ModelConfig):
-    """Teacher-forced training logits: part of the training slice."""
-    raise NotImplementedError("forward_train is training, not ported yet (ROADMAP A10)")
+    """Teacher-forced training logits (B, S_tgt, V) f32: encode ``src``, then
+    every decoder layer over the whole target, each recomputed in the
+    backward (the reference's ``jax.checkpoint`` of the scanned decoder
+    layer). No valid lengths, as in the reference. On the card the causal
+    self attention takes the prefill kernel and its backward; the encoder
+    and the cross attention stay on the plain non-causal paths, as in
+    serving. The reference also recomputes its encoder layers; here they
+    keep their activations, which changes memory and not the result."""
+    _check(cfg)
+    enc_out = encode(params, src, cfg)
+    x = params["embed"][tgt]
+    b, s = tgt.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    for i in range(cfg.num_layers):
+        layer = layer_params(params["dec_layers"], i)
+
+        def body(h, layer=layer):
+            ck, cv = _cross_kv(layer, enc_out, cfg)
+            return _dec_layer_apply(layer, h, positions, cfg, None, ck, cv, None, None)[0]
+
+        x = _remat(body, True)(x)
+    return logits_from_hidden(params, x, cfg)
 
 
 def prefill_step(

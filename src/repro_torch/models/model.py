@@ -3,6 +3,8 @@ of ``repro.models.model``).
 
   model = build_model(cfg)
   params = model.init(seed, device="cuda")
+  logits = model.forward_train(params, batch)   # (B, S, V) f32
+  loss = model.loss(params, batch)              # batch["labels"]: -100 is ignored
   logits, kv = model.prefill(params, batch)    # batch["inputs"]: tokens, or
                                                # embeddings for input_mode="embeddings";
                                                # encdec: batch["src"], batch["tgt"]
@@ -54,6 +56,23 @@ class Model:
             name: torch.zeros(shape, dtype=dtype_of(dt), device=dev)
             for name, (shape, dt) in _cache_shapes(self.cfg, batch, max_len).items()
         }
+
+    def forward_train(self, params: Dict, batch: Dict, remat: bool = True) -> torch.Tensor:
+        if self.cfg.is_encdec:
+            return encdec.forward_train(params, batch["src"], batch["tgt"], self.cfg)
+        return transformer.forward_train(params, batch["inputs"], self.cfg, remat=remat)
+
+    def loss(self, params: Dict, batch: Dict, remat: bool = True) -> torch.Tensor:
+        """Mean next-token NLL over the labels >= 0 (-100 marks an ignored
+        position), as the reference. The reference gathers at -100 too (JAX
+        wraps the index and the mask zeroes it); ``torch.gather`` raises on
+        it, so the labels are clamped to >= 0 first."""
+        logits = self.forward_train(params, batch, remat=remat)
+        labels = batch["labels"]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
     def prefill(self, params: Dict, batch: Dict, valid_len: Optional[torch.Tensor] = None):
         if self.cfg.is_encdec:

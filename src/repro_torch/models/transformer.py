@@ -1,7 +1,8 @@
 """Decoder trunk in PyTorch: dense, moe, vlm, ssm and hybrid families (port
 of ``repro.models.transformer``).
 
-Three entry points (shape-polymorphic over batch):
+Four entry points (shape-polymorphic over batch):
+  forward_train(params, inputs, cfg, remat)               -> logits (B, S, V)
   prefill_step(params, inputs, cfg, valid_len)            -> (last_logits (B,V), kv)
   chunk_prefill_step(params, tokens, start, valid, cfg, cache) -> (last_logits, cache)
   decode_step(params, tokens, positions, cfg, cache)      -> (logits (B,V), cache)
@@ -26,14 +27,17 @@ prefills from ``(B, S, d_model)`` embeddings under ``input_mode=
 "embeddings"`` (decode and chunked prefill stay on tokens, as in the
 reference). Chunked prefill is for the attention families only, as in the
 reference (the SSM prefill carries its state through ``ssm_forward``), and
-never into a ring cache (ROADMAP C6). The encdec family and ngroups > 1
-are outside the ported slices and raise NotImplementedError.
+never into a ring cache (ROADMAP C6). `forward_train` is the training
+forward of every family here (logits of every position). The encdec
+family has its own entry points (`repro_torch.models.encdec`); ngroups > 1
+is outside the ported slices and raises NotImplementedError.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -336,6 +340,71 @@ def _stack_caches(caches) -> Dict:
 # ----------------------------------------------------------------------------
 # Entry points
 # ----------------------------------------------------------------------------
+
+def _unbind(t: torch.Tensor, axes: int):
+    """``t`` unbound along its first ``axes`` axes: nested lists of views."""
+    if axes == 1:
+        return list(t.unbind(0))
+    return [_unbind(r, axes - 1) for r in t.unbind(0)]
+
+
+def _remat(fn, remat: bool):
+    """``fn`` recomputed in the backward instead of keeping its activations
+    (the reference's ``jax.checkpoint`` of a scanned layer), or as it is."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def forward_train(
+    params: Dict, inputs: torch.Tensor, cfg: ModelConfig, remat: bool = True
+) -> torch.Tensor:
+    """Full causal forward from tokens ``(B, S)`` (or embeddings ``(B, S,
+    d_model)`` under ``input_mode="embeddings"``); returns logits (B, S, V)
+    f32. The trunk is the reference's ``_trunk_nocache`` without a valid
+    length: every layer of the attention families and of ssm, or every
+    super-block of hybrid (its Mamba2 layers and the shared block), under
+    ``remat`` recomputed in the backward (`torch.utils.checkpoint`, where
+    the reference wraps the scanned body in ``jax.checkpoint``). On the
+    card the causal attention takes the prefill kernel and its backward;
+    the SSD scan has no backward kernel yet (ROADMAP A10b), so its wrapper
+    refuses ssm and hybrid training there."""
+    _check_decoder(cfg)
+    # tokens through F.embedding rather than indexing: its backward on the card
+    # sums each row's gradients without atomics, so a resumed run is bit-identical
+    x = (_embed_inputs(params, inputs, cfg) if cfg.input_mode == "embeddings"
+         else torch.nn.functional.embedding(inputs, params["embed"]))
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    # each stacked weight unbound once: in the backward one stack per weight
+    # gathers the layers' gradients, where indexing it per layer would scatter
+    # each layer's gradient into a zero tensor the size of the whole stack
+    layers = _map(lambda t: _unbind(t, 2 if cfg.family == "hybrid" else 1), params["layers"])
+    if cfg.family in ATTN_FAMILIES:
+        for i in range(cfg.num_layers):
+            layer, win = layer_params(layers, i), _layer_window(cfg, i)
+
+            def body(h, layer=layer, win=win):
+                return _layer_step(layer, h, positions, cfg, window=win)[0]
+
+            x = _remat(body, remat)(x)
+    elif cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            layer = layer_params(layers, i)
+            x = _remat(lambda h, layer=layer: _ssm_layer(layer, h, cfg, None)[0], remat)(x)
+    else:  # hybrid
+        ns, per = hybrid_blocks(cfg)
+        for i in range(ns):
+            block = [_map(lambda t, i=i, j=j: t[i][j], layers) for j in range(per)]
+
+            def super_body(h, block=block):
+                for layer in block:
+                    h = _ssm_layer(layer, h, cfg, None)[0]
+                return _layer_step(params["shared_attn"], h, positions, cfg)[0]
+
+            x = _remat(super_body, remat)(x)
+    return logits_from_hidden(params, x, cfg)
+
 
 def prefill_step(
     params: Dict,

@@ -1,5 +1,7 @@
 """The port on the card: the kernel wrappers' argument checks (attention
-and SSD scan) and a small serve whose attention goes through the kernels. The kernels themselves are
+and SSD scan) and grad checks, a small serve whose attention goes through
+the kernels, the prefill backward kernels and a small train step against
+the CPU. The kernels themselves are
 held against their plain versions on the card by ``chip_smoke.py`` alone
 (the sweep of tests/test_kernels.py and the serving shapes). Every test is
 marked ``cuda`` and skips without a card; this file imports no JAX, so it
@@ -277,3 +279,93 @@ def test_one_query_non_causal_attention_takes_the_decode_kernel(cuda, kv_valid):
     lens = kvl if kvl is not None else torch.full((4,), 4096, dtype=torch.int32, device=cuda)
     torch.testing.assert_close(out[:, 0], decode_attention_ref(q[:, 0], k, v, lens),
                                rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------------ training
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_backward_kernels_match_the_plain_backward(cuda, dtype):
+    """Autograd through prefill_attention on the card (the forward kernel
+    writing lse, the backward kernels) against the plain backward: f32
+    within 2e-5 x max(1, max|ref|), bf16 within 1e-2 in relative norm of the
+    plain backward in f32; GQA 4:1, q_pos offsets, ragged kv_len, cap 50."""
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention_bwd
+    from repro_torch.kernels.prefill_attention.ref import (
+        prefill_attention_bwd_ref,
+        prefill_attention_lse,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, sq, skv, hq, hkv, dh = 2, 100, 300, 8, 2, 64
+    for cap in (0.0, 50.0):
+        sc = 3.0 if cap else 1.0
+        q, k, v = ((torch.randn(shape, generator=gen, device=cuda) * s).to(dtype)
+                   .requires_grad_()
+                   for shape, s in (((b, sq, hq, dh), sc), ((b, skv, hkv, dh), sc),
+                                    ((b, skv, hkv, dh), 1.0)))
+        do = torch.randn((b, sq, hq, dh), generator=gen, device=cuda).to(dtype)
+        offs = torch.tensor([200, 57], device=cuda, dtype=torch.int32)
+        q_pos = (offs[:, None] + torch.arange(sq, device=cuda, dtype=torch.int32)).contiguous()
+        kv_len = torch.tensor([300, 140], device=cuda, dtype=torch.int32)
+        n0 = prefill_attention_bwd.launches
+        out = prefill_attention(q, k, v, q_pos, kv_len, logit_cap=cap)
+        got = torch.autograd.grad(out, (q, k, v), do)
+        assert prefill_attention_bwd.launches == n0 + 1
+        with torch.no_grad():
+            lse = prefill_attention_lse(q, k, q_pos, kv_len, logit_cap=cap)
+            f = [t.float() for t in (q, k, v, out, do)]
+            ref = prefill_attention_bwd_ref(*f[:4], lse, f[4], q_pos, kv_len, logit_cap=cap)
+        for g, r in zip(got, ref, strict=True):
+            if dtype == torch.float32:
+                assert float((g - r).abs().max()) <= 2e-5 * max(1.0, float(r.abs().max()))
+            else:
+                assert float((g.float() - r).norm() / r.norm()) <= 1e-2
+
+
+def test_wrappers_refuse_a_cuda_tensor_that_requires_grad(cuda):
+    """No kernel wrapper returns a tensor without grad_fn for an input that
+    requires grad: decode attention and the scheduler scans carry no
+    gradient, the SSD scan has no backward yet (ROADMAP A10b)."""
+    from repro_torch.kernels.sched_scan.ops import fcfs_scan
+
+    q = torch.zeros(1, 4, 32, device=cuda, requires_grad=True)
+    k = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="decode_attention: q requires grad"):
+        decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda))
+    x = torch.zeros(1, 40, 2, 16, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="A10b"):
+        ssd(x, torch.zeros(1, 40, 2, device=cuda), -torch.ones(2, device=cuda),
+            torch.zeros(1, 40, 16, device=cuda), torch.zeros(1, 40, 16, device=cuda))
+    a = torch.zeros(4, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="fcfs_scan: a_s requires grad"):
+        fcfs_scan(a, torch.zeros(4, device=cuda), torch.zeros(1, device=cuda))
+
+
+def test_a_small_train_step_on_the_card_matches_the_cpu(cuda):
+    """llama3-8b-smoke in f32: loss and grads of a step at 2 microbatches on
+    the card (prefill kernels and their backward) against the CPU."""
+    from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.training.train_step import loss_and_grad_accum
+
+    cfg = get_config("llama3-8b-smoke").replace(dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(0, device="cpu")
+    batch = SyntheticDataset(cfg, DataConfig(seq_len=64, global_batch=4)).batch_at(0)
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    def flat(tree, p=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, p + k + "/") if isinstance(v, dict) else {p + k: v})
+        return out
+
+    lc, gc = loss_and_grad_accum(model, cpu, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                 2)
+    lg, gg = loss_and_grad_accum(model, to(cpu, cuda),
+                                 {k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}, 2)
+    assert abs(float(lc) - float(lg)) <= 2e-5
+    fg = flat(gg)
+    for name, g in flat(gc).items():
+        assert float((fg[name].cpu() - g).norm()) <= 1e-4 * max(float(g.norm()), 1e-6), name

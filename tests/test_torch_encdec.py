@@ -254,8 +254,8 @@ def test_params_from_jax_refuses_a_wrong_tree(fault):
 
 
 def test_model_api_matches_jax(rng):
-    """Model.prefill (batch["src"], batch["tgt"], valid_len as tgt_valid)
-    and Model.decode dispatch to the family."""
+    """Model.prefill (batch["src"], batch["tgt"], valid_len as tgt_valid),
+    Model.decode and Model.forward_train dispatch to the family."""
     jm, jp, tm, tp = _pair()
     src, tgt = _inputs(rng, tm.cfg)
     jlg, jkv = jm.prefill(jp, dict(src=jnp.asarray(src), tgt=jnp.asarray(tgt)),
@@ -266,8 +266,11 @@ def test_model_api_matches_jax(rng):
     jl2, _ = jm.decode(jp, jnp.asarray(tok), jnp.asarray(TGT_VALID), _jax_cache(jkv, MAX_LEN))
     tl2, _ = tm.decode(tp, _t(tok), _t(TGT_VALID), te.handoff(tm.cfg, tkv, MAX_LEN))
     np.testing.assert_allclose(_np(tl2), np.asarray(jl2), **TOL)
-    with pytest.raises(NotImplementedError, match="A10"):
-        te.forward_train(tp, _t(src), _t(tgt), tm.cfg)
+    # the training forward (ported with the training slice): teacher-forced logits
+    jlt = jm.forward_train(jp, dict(src=jnp.asarray(src), tgt=jnp.asarray(tgt)))
+    tlt = tm.forward_train(tp, dict(src=_t(src), tgt=_t(tgt)))
+    assert tlt.shape == jlt.shape
+    np.testing.assert_allclose(_np(tlt), np.asarray(jlt), **TOL)
 
 
 def test_c7_padded_cross_cache_pinned(rng):
