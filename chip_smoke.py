@@ -42,16 +42,20 @@ Phases, each printed on its own lines:
            At the serving shapes two faults read off the plain version (the
            diagonal dropped, one chunk's S_in not carried) must exceed twice
            the limit, and bf16 is timed on both routes at B=2 and at the ssm
-           phase's B=4. The prefill backward kernels (prefill_attention_bwd.cu)
-           against their plain backward: 14 sweep cases (ragged q_pos
-           offsets, kv_len short of the visible rows, every Dh, cap 50 at
-           Dh=256) and the training shapes of minicpm-2b (B=4 S=2048 36/36
-           Dh=64), llama3-8b (B=1 S=2048 32/8 Dh=128) and gemma2-9b (B=1
-           S=2048 16/8 Dh=256, cap 50), f32 within 2e-5 x max(1, max|ref|),
-           bf16 dq, dk, dv within BWD_BF16_REL (1e-2) in relative norm of the
-           plain backward in f32, where two faults planted in the plain
-           version (D dropped from dS; the cap's chain factor dropped) must
-           land beyond twice the limit; timed beside SDPA's backward
+           phase's B=4. The prefill backward kernels (prefill_attention_bwd.cu;
+           bf16 on wgmma, f32 on the scalar kernels) against their plain
+           backward: 18 sweep cases (ragged q_pos offsets, kv_len short of
+           the visible rows, every Dh, cap 50 at Dh=256, 8 query heads per KV
+           head, Sq not a multiple of 64) and the training shapes of
+           minicpm-2b (B=4 S=2048 36/36 Dh=64), llama3-8b (B=1 S=2048 32/8
+           Dh=128) and gemma2-9b (B=1 S=2048 16/8 Dh=256, cap 50), f32 within
+           2e-5 x max(1, max|ref|), bf16 dq, dk, dv within BWD_BF16_REL (1e-2)
+           in relative norm of the plain backward in f32, where two faults
+           planted in the plain version (D dropped from dS; the cap's chain
+           factor dropped) must land beyond twice the limit; two calls on the
+           same inputs bit-identical at each training shape, and NaN in K and
+           V past kv_len leaving dq, dk, dv bit-identical (both dtypes);
+           timed beside SDPA's backward
   train    training on the card: one train step of llama3-8b-smoke and
            minicpm-2b-smoke in f32 at 1 and 2 microbatches on the card (the
            prefill kernels and their backward) against the CPU (loss within
@@ -214,11 +218,13 @@ DECODE_TILE_ROWS = 32  # BK in csrc/decode_attention.cu
 ROW_FAULT_MAX_LEN = 1024
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device spin at the H100's clock (`_time_ms`)
 # bf16 prefill backward (dq, dk, dv), relative to the plain backward computed in
-# f32 from the same bf16 inputs (`_bwd_f32`): the kernels compute in f32 from
-# bf16 tiles and round P to bf16 before dV, so the reading is the output's own
-# rounding, some 2e-3. Dropping D from dS or the cap's chain factor moves dq
-# and dk by 0.2 and more at the checked shapes (a CPU reading at S=512), far
-# beyond twice the limit, which the kernels phase checks on the card.
+# f32 from the same bf16 inputs (`_bwd_f32`): the wgmma kernels round P to bf16
+# before dV and dS to bf16 before dK and dQ, and sum in f32, so the reading is
+# that rounding and the output's own, some 2e-3 to 4e-3 (tests/
+# test_torch_attention_grad.py emulates the rounding points on the CPU). Dropping
+# D from dS or the cap's chain factor moves dq and dk by 0.2 and more at the
+# checked shapes (a CPU reading at S=512), far beyond twice the limit, which the
+# kernels phase checks on the card.
 BWD_BF16_REL = 1e-2
 
 
@@ -852,23 +858,56 @@ def _bwd_check(gen, b, sq, skv, hq, hkv, dh, cap=0.0, offs=None, kv_lens=None,
 def _bwd_sweep(gen) -> None:
     """The forward sweep's shapes for the backward, f32 and bf16: q_pos at
     ragged offsets, kv_len cut short of the visible rows on the second of
-    each pair, every Dh of HEAD_DIMS, a cap of 50 at Dh = 256."""
+    each pair, every Dh of HEAD_DIMS, a cap of 50 at Dh = 256, 8 query heads
+    per KV head, and Sq a multiple of neither 64 nor 128 at Dh = 128 (the
+    wgmma kernels' 64-row query tiles and 128-row blocks)."""
     import torch
 
     worst = {"f32": 0.0, "bf16": 0.0}
-    for b, sq, skv, hq, hkv, dh, cap in [
+    cases = [
         (2, 128, 256, 4, 2, 64, 0.0), (1, 64, 64, 8, 8, 128, 0.0), (2, 100, 300, 6, 2, 32, 0.0),
         (1, 256, 512, 4, 1, 128, 0.0), (3, 32, 160, 4, 2, 16, 0.0), (2, 96, 96, 4, 4, 80, 0.0),
-        (2, 100, 300, 16, 8, 256, 50.0),
-    ]:
+        (2, 100, 300, 16, 8, 256, 50.0), (2, 96, 200, 32, 4, 64, 0.0),
+        (2, 200, 333, 8, 4, 128, 0.0),
+    ]
+    for b, sq, skv, hq, hkv, dh, cap in cases:
         offs = torch.randint(0, skv - sq + 1, (b,), generator=gen, device="cuda").tolist()
         for kv_lens in (None, [max(1, o + sq - 7) for o in offs]):
             r = _bwd_check(gen, b, sq, skv, hq, hkv, dh, cap, offs=offs, kv_lens=kv_lens)
             worst = {k: max(v, r[k]) for k, v in worst.items()}
-    say(f"[kernels] prefill_attention_bwd sweep ok (14 cases: ragged q_pos offsets, kv_len past "
-        f"and short of the visible rows, every Dh of HEAD_DIMS, cap 50 at Dh=256): f32 max abs "
-        f"err / max(1, max|ref|) {worst['f32']:.3e} (limit {TOL['torch.float32']}), bf16 "
-        f"relative error {worst['bf16']:.3e} (limit {BWD_BF16_REL})")
+    say(f"[kernels] prefill_attention_bwd sweep ok ({2 * len(cases)} cases: ragged q_pos offsets, "
+        f"kv_len past and short of the visible rows, every Dh of HEAD_DIMS, cap 50 at Dh=256, "
+        f"Hq/Hkv = 8, Sq = 200 at Dh=128): f32 max abs err / max(1, max|ref|) {worst['f32']:.3e} "
+        f"(limit {TOL['torch.float32']}), bf16 relative error {worst['bf16']:.3e} (limit "
+        f"{BWD_BF16_REL})")
+
+
+def _bwd_nan_tail(gen) -> None:
+    """NaN in K and V past kv_len (kv_len ending inside a tile, each sequence
+    its own) leaves dq, dk and dv bit-identical, f32 and bf16: the backward
+    kernels never read those rows."""
+    import torch
+
+    from repro_torch.kernels.prefill_attention.ops import (
+        prefill_attention_bwd,
+        prefill_attention_fwd,
+    )
+
+    lens = [237, 150]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, q_pos, kv_len = _bwd_inputs(gen, 2, 100, 300, 8, 2, 128, 0.0, dtype,
+                                                 offs=[n - 100 for n in lens])
+        out, lse = prefill_attention_fwd(q, k, v, q_pos, kv_len)
+        clean = prefill_attention_bwd(q, k, v, out, lse, do, q_pos, kv_len)
+        kn, vn = k.clone(), v.clone()
+        for i, n in enumerate(lens):
+            kn[i, n:] = float("nan")
+            vn[i, n:] = float("nan")
+        tail = prefill_attention_bwd(q, kn, vn, out, lse, do, q_pos, kv_len)
+        check(all(torch.equal(a, c) for a, c in zip(clean, tail, strict=True)),
+              f"prefill_attention_bwd {dtype}: NaN past kv_len changed dq, dk or dv")
+    say(f"[kernels] prefill_attention_bwd edges ok: NaN in K and V past kv_len {lens} leaves dq, "
+        f"dk, dv bit-identical (f32 and bf16)")
 
 
 def _prefill_bwd_row(ctx, gen, flush, b, s, hq, hkv, dh, cap=0.0, tag="") -> dict:
@@ -887,7 +926,13 @@ def _prefill_bwd_row(ctx, gen, flush, b, s, hq, hkv, dh, cap=0.0, tag="") -> dic
     q, k, v, do, q_pos, kv_len, out, lse = r.pop("inputs")
 
     def kernel():
-        prefill_attention_bwd(q, k, v, out, lse, do, q_pos, kv_len, logit_cap=cap)
+        return prefill_attention_bwd(q, k, v, out, lse, do, q_pos, kv_len, logit_cap=cap)
+
+    first, again = kernel(), kernel()
+    check(all(torch.equal(x, y) for x, y in zip(first, again, strict=True)),
+          f"prefill_attention_bwd at B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh}: two calls on the same "
+          f"inputs differ")
+    del first, again
 
     def plain():
         prefill_attention_bwd_ref(q, k, v, out, lse, do, q_pos, kv_len, logit_cap=cap)
@@ -919,8 +964,9 @@ def _prefill_bwd_row(ctx, gen, flush, b, s, hq, hkv, dh, cap=0.0, tag="") -> dic
     )
     faults = ", ".join(f"{f} dropped {r[f'fault_{f}']:.3e}" for f in ("D", "cap")
                        if f"fault_{f}" in r)
-    say(f"[kernels] prefill_attention_bwd{tag} at {row['shape']}: kernels {row['ms']:.4f} ms per "
-        f"call (device alone {row['device_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, sdpa "
+    say(f"[kernels] prefill_attention_bwd{tag} (CUDA C++, wgmma for bf16; f32 scalar) at "
+        f"{row['shape']}: kernels {row['ms']:.4f} ms per call (device alone "
+        f"{row['device_ms']:.4f} ms; two calls bit-identical), plain {row['plain_ms']:.4f} ms, sdpa "
         f"backward {row['library_ms']:.4f} ms (device alone {row['library_device_ms']:.4f} ms), "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); f32 max abs err / max(1, "
         f"max|ref|) {r['f32']:.3e} (limit {TOL['torch.float32']}); bf16 relative error "
@@ -936,6 +982,7 @@ def _bwd_rows(ctx, gen, flush) -> dict:
     table's row: the train phase's main path), llama3-8b's (GQA 4:1, Dh=128)
     and gemma2-9b's (Dh=256, cap 50)."""
     _bwd_sweep(gen)
+    _bwd_nan_tail(gen)
     row = _prefill_bwd_row(ctx, gen, flush, 4, 2048, 36, 36, 64, tag=" (minicpm-2b)")
     _prefill_bwd_row(ctx, gen, flush, 1, 2048, 32, 8, 128, tag=" (llama3-8b)")
     _prefill_bwd_row(ctx, gen, flush, 1, 2048, 16, 8, 256, cap=50.0, tag=" (gemma2-9b)")
@@ -2908,8 +2955,10 @@ def _train_profile(step_fn, params, opt, ds, device) -> dict:
     for name, k0, k1 in device_kernels(prof.events()):
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + (k1 - k0) / 1e3
         names[name] = names.get(name, 0.0) + (k1 - k0) / 1e3
-    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
-    return dict(wall_ms=1e3 * wall, busy_ms=sum(groups.values()), groups=groups, top=top)
+    top = sorted(names.items(), key=lambda kv: -kv[1])
+    bwd = [kv for kv in top if kernel_group(kv[0]) == "prefill_attention_bwd"]
+    return dict(wall_ms=1e3 * wall, busy_ms=sum(groups.values()), groups=groups, top=top[:8],
+                bwd=bwd)
 
 
 def phase_train(ctx) -> None:
@@ -2955,6 +3004,8 @@ def phase_train(ctx) -> None:
         + f" [{ctx['card']}]")
     say("[train] top kernels of the profiled step: " + "; ".join(
         f"{name[:70]} {ms:.1f} ms" for name, ms in pr["top"]))
+    say("[train] backward kernels of the profiled step: " + "; ".join(
+        f"{name[:70]} {ms:.1f} ms" for name, ms in pr["bwd"]))
 
 # ---------------------------------------------------------------------- main
 def main() -> int:

@@ -271,20 +271,6 @@ constexpr size_t smem_bytes() {
 }
 static_assert(smem_bytes<256>() <= 227 * 1024, "the ring fits the 227 KB a block may hold");
 
-// Issue the copy of a ROWS x DH tile whose row r starts at row(r) into the
-// core-matrix layout of sm90.cuh at dst; rows >= n_valid are zero-filled
-// and never read.
-template <int DH, int ROWS, class RowPtr>
-__device__ __forceinline__ void load_tile(bf16* dst, int n_valid, RowPtr row) {
-  constexpr int CPR = DH / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NT) {
-    const int r = (i / (8 * CPR)) * 8 + i % 8, c = (i / 8) % CPR;
-    const bool ok = r < n_valid;
-    cp_async_16(dst + 8 * i, row(ok ? r : 0) + 8 * c, ok);
-  }
-}
-
 template <int DH>
 __global__ void __launch_bounds__(NT, 1)
 prefill_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -330,7 +316,7 @@ prefill_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_min[tid] = INT_MAX;
     wg_max[tid] = -1;
   }
-  load_tile<DH, BQ>(Qs, n_q, [&](int r) { return q + row_off(r); });
+  load_tile<DH, BQ, NT>(Qs, n_q, [&](int r) { return q + row_off(r); });
   cp_async_commit();
 
   // this thread's accumulator rows: r0 and r0 + 8 of the block
@@ -374,8 +360,8 @@ prefill_attention_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t < n_tiles) {
       const int t0 = t * BK, n_k = min(BK, kv_end - t0);
       bf16* slot = KVs + (t % STAGES) * 2 * TILE;
-      load_tile<DH, BK>(slot, n_k, [&](int r) { return kb + (t0 + r) * kv_stride; });
-      load_tile<DH, BK>(slot + TILE, n_k, [&](int r) { return vb + (t0 + r) * kv_stride; });
+      load_tile<DH, BK, NT>(slot, n_k, [&](int r) { return kb + (t0 + r) * kv_stride; });
+      load_tile<DH, BK, NT>(slot + TILE, n_k, [&](int r) { return vb + (t0 + r) * kv_stride; });
     }
     cp_async_commit();
   };

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the attention and SSD scan kernels:
-// 16- and 4-byte cp.async with zero fill, the async-proxy fence, ldmatrix,
-// and warpgroup matrix multiply (wgmma) on bf16 operands with f32
-// accumulators in registers.
+// 16- and 4-byte cp.async with zero fill and whole-tile copies, the
+// async-proxy fence, ldmatrix, the SFU's 2^x, and warpgroup matrix multiply
+// (wgmma) on bf16 operands with f32 accumulators in registers.
 //
 // Shared-memory operand layout. wgmma reads its shared operands through a
 // 64-bit descriptor. The kernels use the layout without swizzle, whose unit
@@ -56,6 +56,20 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Issue the 16-byte copies of a ROWS x D bf16 tile, whose row r starts at
+// row(r) in device memory, into the core-matrix layout above at dst, spread
+// over NTHREADS threads; rows >= n_valid are zero-filled and never read.
+template <int D, int ROWS, int NTHREADS, class RowPtr>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int n_valid, RowPtr row) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * CPR; i += NTHREADS) {
+    const int r = (i / (8 * CPR)) * 8 + i % 8, c = (i / 8) % CPR;
+    const bool ok = r < n_valid;
+    cp_async_16(dst + 8 * i, row(ok ? r : 0) + 8 * c, ok);
+  }
 }
 
 // 4-byte copy (one f32) from device to shared memory in the background;
@@ -123,6 +137,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 2^x by the SFU's one instruction (ex2.approx, relative error ~2^-22;
+// results below 2^-126 flush to 0): where the result is rounded to bf16 or
+// scales an f32 value, the exp2f library call's extra range handling buys
+// nothing.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // x as the compiler can prove uniform over the warp (lane 0's value): a

@@ -345,30 +345,6 @@ constexpr int XSTAGES = 3;  // x tiles in ssd_chunk_out's ring
 constexpr int PSTAGES = 2;  // chunks in ssd_state_pass's ring
 static_assert(XSTAGES >= 2 && PSTAGES >= 2, "a ring holds the tile in use and the next");
 
-// Issue the copy of a ROWS x D bf16 tile whose row r starts at row(r) into
-// the core-matrix layout of sm90.cuh at dst; rows >= n_valid are
-// zero-filled and never read.
-template <int D, int ROWS, int NTHREADS, class RowPtr>
-__device__ __forceinline__ void load_tile(bf16* dst, int n_valid, RowPtr row) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * CPR; i += NTHREADS) {
-    const int r = (i / (8 * CPR)) * 8 + i % 8, c = (i / 8) % CPR;
-    const bool ok = r < n_valid;
-    cp_async_16(dst + 8 * i, row(ok ? r : 0) + 8 * c, ok);
-  }
-}
-
-// 2^x by the SFU's one instruction (ex2.approx, relative error ~2^-22;
-// results below 2^-126 flush to 0): the decays are rounded to bf16 or
-// multiply an f32 state, so the exp2f library call's extra range handling
-// buys nothing here.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Inclusive cumsum of a * dt[0 .. Q) by one warp, in base 2: writes
 // out[t] = log2(e) * sum_{k <= t} a dt_k and returns out[Q - 1] to every
 // lane. Lane l owns rows l * Q/32 .. (l + 1) * Q/32 - 1.

@@ -14,7 +14,8 @@ themselves, so nothing is padded here (the kernel source says more).
 Gradients: `prefill_attention` goes through `PrefillAttentionFn` when grad
 mode is on and q, k or v requires grad. Its forward has the forward kernel
 write the row log-sum-exp beside the output, and its backward launches the
-backward kernels (`prefill_attention_bwd`) on CUDA tensors and runs their
+backward kernels (`prefill_attention_bwd`; bf16 on wgmma, f32 on scalar
+FMAs, chosen by dtype as the forward's) on CUDA tensors and runs their
 plain version, `ref.prefill_attention_bwd_ref`, on CPU tensors. The
 serving path (no grad) passes no log-sum-exp and launches exactly what it
 did before. The reference cannot differentiate its Pallas kernel at all
@@ -51,7 +52,10 @@ _KB = "prefill_attention_bwd"
 # the forward kernel of each dtype: bf16 on wgmma, f32 on scalar FMAs
 _ENTRY = {torch.bfloat16: "repro_prefill_attention_bf16",
           torch.float32: "repro_prefill_attention_f32"}
-# the backward kernels, scalar f32 arithmetic for both dtypes
+# the backward kernels of each dtype, a fixed route as the forward's: bf16 on
+# wgmma (dK/dV and dQ in two deterministic passes, P and dS rounded to bf16 as
+# the products' operands), f32 on the scalar kernels (f32 FMAs, the 2e-5
+# tolerance); the kernel source says what bounds each
 _BWD_ENTRY = {torch.bfloat16: "repro_prefill_attention_bwd_bf16",
               torch.float32: "repro_prefill_attention_bwd_f32"}
 

@@ -4,9 +4,14 @@ version) against ``jax.vjp`` of the reference's own plain attention
 (``repro.models.layers.naive_attention`` under ``attention_mask``, and
 ``blockwise_attention`` for one large case) on the same numpy inputs, within
 2e-5 x max(1, max|ref|) in f32; ``PrefillAttentionFn`` on CPU tensors
-against autograd of ``prefill_attention_ref``; and the wrappers' grad check
-(a kernel writes into a fresh tensor autograd cannot see through, so every
-wrapper refuses an input that requires grad outside its autograd Function).
+against autograd of ``prefill_attention_ref``; the bf16 backward kernels'
+rounding points emulated in plain PyTorch (P and dS rounded to bf16, every
+sum in f32) within the 1e-2 relative norm that ``chip_smoke.py`` holds the
+kernels to (``BWD_BF16_REL``), against the f32 plain backward and against
+``jax.vjp`` of the reference's naive attention, at every head dim, with and
+without a cap; and the wrappers' grad check (a kernel writes into a fresh
+tensor autograd cannot see through, so every wrapper refuses an input that
+requires grad outside its autograd Function).
 
 The reference cannot differentiate its Pallas kernel (``pallas_call`` has no
 transpose rule, ROADMAP C8), so its plain attention is the oracle."""
@@ -145,6 +150,78 @@ def test_autograd_function_equals_autograd_of_the_plain_version(case, rng):
     ref = torch.autograd.grad(ref_out, r, g)
     for name, x, y in zip(("dq", "dk", "dv"), got, ref, strict=True):
         _tol_check(x.numpy(), y.numpy(), f"{case} {name}")
+
+
+# The limit chip_smoke.py holds the bf16 backward kernels to, in relative norm
+BWD_BF16_REL = 1e-2
+
+
+def _bwd_bf16_emulated(q, k, v, out, lse, do, q_pos, kv_len, cap):
+    """The bf16 route of csrc/prefill_attention_bwd.cu in plain PyTorch, from
+    bf16 inputs: S, dP and D = rowsum(dO * O) in f32, P = exp(s - lse) and
+    dS = P (dP - D) (1 - (s / cap)^2), then P and dS rounded to bf16 (the
+    register A operands of the wgmma products), dV = P^T dO, dK = scale dS^T
+    Q and dQ = scale dS K summed in f32, dK and dV over each group, and the
+    results rounded to bf16 as the kernels store them."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    sc = 1.0 / dh ** 0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    kr, vr = kf.repeat_interleave(rep, 2), vf.repeat_interleave(rep, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * sc
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    kvp = torch.arange(skv)
+    mask = ((kvp[None, None, :] <= q_pos[:, :, None])
+            & (kvp[None, None, :] < kv_len[:, None, None]))[:, None]
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    d = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - d)
+    if cap:
+        ds = ds * torch.where(mask, 1.0 - (s / cap) ** 2, 0.0)
+    p16, ds16 = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds16, kr) * sc
+    dk = (torch.einsum("bhqk,bqhd->bkhd", ds16, qf) * sc).reshape(b, skv, hkv, rep, dh).sum(3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p16, dof).reshape(b, skv, hkv, rep, dh).sum(3)
+    return [g.to(torch.bfloat16).float() for g in (dq, dk, dv)]
+
+
+def _rel(got, ref):
+    ref = torch.from_numpy(np.array(ref))
+    return float((got - ref).norm() / ref.norm())
+
+
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("dh", checks.HEAD_DIMS)
+def test_bf16_rounding_points_stay_within_the_kernel_limit(dh, cap, rng):
+    """The wgmma backward's rounding points (P and dS to bf16 before their
+    products, f32 sums, bf16 stores) at GQA 2:1 with ragged prefixes and
+    kv_len: within BWD_BF16_REL in relative norm of the f32 plain backward
+    from the same bf16 inputs (what chip_smoke.py compares the kernels
+    with) and of jax.vjp of the reference's naive attention, and not
+    trivially so (the bf16 rounding shows)."""
+    b, sq, skv, hq, hkv = 2, 24, 40, 4, 2
+    q, k, v, do, q_pos, kv_len = _inputs(rng, b, sq, skv, hq, hkv, dh, cap, True)
+    qb, kb, vb, dob = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    qp, kl = torch.from_numpy(q_pos), torch.from_numpy(kv_len)
+    out = prefill_attention_ref(qb, kb, vb, qp, kl, logit_cap=cap)  # bf16, as the forward kernel
+    lse = prefill_attention_lse(qb, kb, qp, kl, logit_cap=cap)
+    got = _bwd_bf16_emulated(qb, kb, vb, out, lse, dob, qp, kl, cap)
+    f32 = [t.float() for t in (qb, kb, vb, out, dob)]
+    plain = prefill_attention_bwd_ref(f32[0], f32[1], f32[2], f32[3], lse, f32[4], qp, kl,
+                                      logit_cap=cap)
+    mask = jl.attention_mask(jnp.asarray(q_pos), skv, jnp.asarray(kv_len), causal=True)
+    _, vjp = jax.vjp(lambda a, b_, c: jl.naive_attention(a, b_, c, mask, logit_cap=cap),
+                     *(jnp.asarray(t.numpy()) for t in f32[:3]))
+    ref = vjp(jnp.asarray(f32[4].numpy()))
+    for name, g, p_, r in zip(("dq", "dk", "dv"), got, plain, ref, strict=True):
+        rel_plain, rel_jax = _rel(g, p_), _rel(g, r)
+        assert rel_plain <= BWD_BF16_REL and rel_jax <= BWD_BF16_REL, (
+            f"Dh={dh} cap={cap} {name}: relative error {rel_plain:.3e} (plain f32), "
+            f"{rel_jax:.3e} (jax.vjp) beyond {BWD_BF16_REL}")
+        assert rel_plain > 1e-4, f"Dh={dh} cap={cap} {name}: no bf16 rounding seen"
 
 
 def test_serving_path_takes_no_autograd_function(rng):
