@@ -55,21 +55,41 @@ Phases, each printed on its own lines:
            factor dropped) must land beyond twice the limit; two calls on the
            same inputs bit-identical at each training shape, and NaN in K and
            V past kv_len leaving dq, dk, dv bit-identical (both dtypes);
-           timed beside SDPA's backward
-  train    training on the card: one train step of llama3-8b-smoke and
-           minicpm-2b-smoke in f32 at 1 and 2 microbatches on the card (the
-           prefill kernels and their backward) against the CPU (loss within
-           2e-5, every grad leaf within 1e-4 in relative norm); a resume at
-           smoke size bit-identical to an uninterrupted run (3 steps, an
-           async checkpoint, a restore into fresh tensors, 1 step); then
-           minicpm-2b whole in bf16 (random weights from a seed):
-           SyntheticDataset(seq_len=2048, global_batch=8), 2 microbatches,
-           remat, 6 AdamW steps with WSD warm-up 2: every loss and grad norm
-           finite, the backward launched 80 times a step and the forward 160
-           (remat), the last loss below the first and the first batch's loss
-           lower after training; each step's time, tokens/s, model-FLOPs
-           share of the card's dense bf16 peak and peak memory are printed
-           (the global batch halves if the first step's peak passes 72 GB)
+           timed beside SDPA's backward, also at zamba2-2.7b's shared
+           attention (B=4 S=2048 32/32 Dh=80). The SSD scan's backward
+           kernels (ssd_scan_bwd.cu: ssd_state_bwd, ssd_chunk_bwd,
+           ssd_bwd_reduce) against the plain backward (ssd_chunked_bwd in
+           f32 from the exact states), after the route's forward wrote
+           S_in: the forward's sweep (ragged L, L < Q, initial states with
+           dinit, a nonzero final-state gradient, a partial head group) and
+           the training microbatches of zamba2-2.7b (B=4 L=2048 H=80 P=N=64)
+           and mamba2-130m (B=4 L=2048 H=24 P=64 N=128), f32 within 1e-4 x
+           max(1, max|ref|), bf16 dx, ddt, dA, dB, dC, dinit within
+           SSD_BWD_BF16_REL (1e-2) in relative norm, where two faults
+           planted in the plain backward (dS not carried across the middle
+           chunk; the reverse cumsum of dcums dropped) must land beyond
+           twice the limit; two calls bit-identical; timed beside the plain
+           backward and the bound (no library call computes it)
+  train    training on the card: one train step of llama3-8b-smoke,
+           minicpm-2b-smoke, mamba2-130m-smoke and zamba2-2.7b-smoke in f32
+           at 1 and 2 microbatches on the card (the prefill kernels, the SSD
+           scan and their backward kernels, each launched exactly as often
+           as a step needs) against the CPU (loss within 2e-5, every grad
+           leaf within 1e-4 in relative norm); a resume at smoke size
+           bit-identical to an uninterrupted run (3 steps, an async
+           checkpoint, a restore into fresh tensors, 1 step); then
+           minicpm-2b and zamba2-2.7b whole in bf16 (random weights from a
+           seed), each: SyntheticDataset(seq_len=2048, global_batch=8), 2
+           microbatches, remat, 6 AdamW steps with WSD warm-up 2: every
+           loss and grad norm finite, each step's kernel launches exact
+           (minicpm-2b: the prefill backward 80 and forward 160; zamba2-2.7b:
+           the SSD backward 108 and forward 216, the prefill backward 18 and
+           forward 36; remat runs each forward twice), the last loss below
+           the first and the first batch's loss lower after training; each
+           step's time, tokens/s, model-FLOPs share of the card's dense bf16
+           peak (`_train_flops`) and peak memory are printed, and one more
+           step is profiled by kernel group (the global batch halves if the
+           first step's peak passes 72 GB)
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
            policies, slot then paged KV; both attention kernels must launch
@@ -173,7 +193,8 @@ repository, and prints the kernel table and the card line before the last
 line, which is the ``{"ok": true, ...}`` record. The table's launches are
 the slot serve's (attention), the minicpm-2b training run's (the prefill
 backward, timed at its shape), the zamba2 prefill's (SSD scan, whose row
-is timed at that prefill's shape, B=4 L=2048) and the sched phase's
+is timed at that prefill's shape, B=4 L=2048), the zamba2-2.7b training
+run's (the SSD backward, timed at its microbatch) and the sched phase's
 decisions (sched_scan, timed at 4096 slots), each counted from zero.
 """
 from __future__ import annotations
@@ -548,6 +569,7 @@ def phase_kernels(ctx) -> None:
             f"{rel} [{ctx['card']}]")
     rows.append(_ssd_checks(ctx, gen, flush))
     rows.append(_bwd_rows(ctx, gen, flush))
+    rows.append(_ssd_bwd_rows(ctx, gen, flush))
     ctx["kernel_rows"] = rows
 
 
@@ -986,6 +1008,186 @@ def _bwd_rows(ctx, gen, flush) -> dict:
     row = _prefill_bwd_row(ctx, gen, flush, 4, 2048, 36, 36, 64, tag=" (minicpm-2b)")
     _prefill_bwd_row(ctx, gen, flush, 1, 2048, 32, 8, 128, tag=" (llama3-8b)")
     _prefill_bwd_row(ctx, gen, flush, 1, 2048, 16, 8, 256, cap=50.0, tag=" (gemma2-9b)")
+    # zamba2-2.7b's shared attention at its training microbatch (the train phase's hybrid run)
+    _prefill_bwd_row(ctx, gen, flush, 4, 2048, 32, 32, 80, tag=" (zamba2-2.7b)")
+    return row
+
+
+# ------------------------------------------------------------- SSD backward
+SSD_BWD_F32_TOL = 1e-4  # x max(1, max|ref|): the forward's f32 tolerance
+# (B, L, H, P, N, chunk, initial state): the forward's sweep and route
+# shapes for the backward: ragged L, L < Q, initial states (dinit), a head
+# count whose last head group of ssd_chunk_bwd is partial (20 heads)
+SSD_BWD_SWEEP = [
+    (2, 256, 4, 64, 32, 64, False), (1, 100, 2, 32, 16, 32, True), (2, 128, 8, 16, 64, 128, False),
+    (2, 300, 4, 64, 128, 128, True), (2, 50, 4, 32, 32, 64, True), (1, 100, 3, 64, 128, 128, False),
+    (1, 7, 3, 16, 16, 128, True), (4, 2048, 20, 64, 64, 128, True), (2, 2048, 24, 32, 128, 64, False),
+]
+# the training microbatches of the train phase's models (B=4 of global batch 8, 2 microbatches)
+SSD_BWD_TRAIN = {"zamba2-2.7b": (4, 2048, 80, 64, 64, 128), "mamba2-130m": (4, 2048, 24, 64, 128, 128)}
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def _ssd_bwd_ref(x, dt, A, Bm, Cm, chunk, s0, dy, dfinal, fault=None):
+    """The plain backward of the SSD scan in f32 from the same inputs and the
+    exact states (what the kernels are held to), or, with ``fault``, the same
+    with one step planted wrong: "dS" leaves the state's gradient uncarried
+    across the middle chunk boundary (the two halves are differentiated
+    apart, the first from a zero dS), "cumsum" drops the reverse cumsum of
+    dcums (da = dcums). The faults show that `SSD_BWD_BF16_REL` catches
+    such a kernel."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ref
+
+    xf, Bf, Cf, dyf = (t.float() for t in (x, Bm, Cm, dy))
+    q = min(chunk, x.shape[1])
+    if fault == "dS":
+        cut = (-(-x.shape[1] // q) // 2) * q
+        _, s_cut = ref.ssd_chunked(xf[:, :cut], dt[:, :cut], A, Bf[:, :cut, None],
+                                   Cf[:, :cut, None], q, s0)
+        left = ref.ssd_chunked_bwd(xf[:, :cut], dt[:, :cut], A, Bf[:, :cut], Cf[:, :cut], q, s0,
+                                   None, dyf[:, :cut], None)
+        right = ref.ssd_chunked_bwd(xf[:, cut:], dt[:, cut:], A, Bf[:, cut:], Cf[:, cut:], q,
+                                    s_cut, None, dyf[:, cut:], dfinal)
+        dx, ddt, dB, dC = (torch.cat([left[i], right[i]], dim=1) for i in (0, 1, 3, 4))
+        return dx, ddt, left[2] + right[2], dB, dC, left[5]
+    plain = ref._reverse_cumsum
+    if fault == "cumsum":
+        ref._reverse_cumsum = lambda t, dim: t
+    try:
+        return ref.ssd_chunked_bwd(xf, dt, A, Bf, Cf, q, s0, None, dyf, dfinal)
+    finally:
+        ref._reverse_cumsum = plain
+
+
+def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False) -> dict:
+    """The SSD backward kernels against `_ssd_bwd_ref` at one shape, after
+    the route's forward wrote S_in, with an initial state where asked and a
+    nonzero gradient of the final state: f32 within SSD_BWD_F32_TOL x max(1,
+    max|ref|), bf16 dx, ddt, dA, dB, dC and dinit each within
+    `SSD_BWD_BF16_REL` in relative norm; with ``faults`` (bf16) both
+    planted faults must land beyond twice that limit. Returns the readings
+    and the inputs (for timing)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import SSD_BWD_BF16_REL, route, ssd_bwd, ssd_fwd
+
+    what = f"B={b} L={l} H={h} P={p} N={n} Q={chunk}{' init_state' if with_s0 else ''} {dtype}"
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, b, l, h, p, n, dtype)
+    s0 = _randn(gen, (b, h, p, n), torch.float32) if with_s0 else None
+    dy, dfinal = _randn(gen, (b, l, h, p), dtype), _randn(gen, (b, h, p, n), torch.float32)
+    _, _, s_in = ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+    got = ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, dfinal, chunk=chunk, init_state=s0)
+    ref = _ssd_bwd_ref(x, dt, A, Bm, Cm, chunk, s0, dy, dfinal)
+    res = dict(route=route(dtype, p, n, chunk), inputs=(x, dt, A, Bm, Cm, s_in, dy, dfinal))
+    if dtype == torch.float32:
+        errs = [_max_err(g, r) / max(1.0, float(r.abs().max())) for g, r in zip(got, ref, strict=True)]
+        res["f32"] = max(errs)
+        check(res["f32"] <= SSD_BWD_F32_TOL, f"ssd_scan_bwd {what}: max abs err / max(1, max|ref|) "
+              f"of {SSD_BWD_NAMES}: {errs}")
+        return res
+    rels = [_rel_err(g, r) for g, r in zip(got, ref, strict=True)]
+    res["bf16"] = max(rels)
+    res["max_abs_err"] = max(_max_err(g, r) for g, r in zip(got, ref, strict=True))
+    check(res["bf16"] <= SSD_BWD_BF16_REL, f"ssd_scan_bwd {what}: relative error of "
+          f"{SSD_BWD_NAMES}: {rels} beyond {SSD_BWD_BF16_REL}")
+    if faults:  # each moves every gradient it reaches: the least of those is reported
+        for fault, reached in (("dS", (0, 1, 2, 3)), ("cumsum", (1, 2))):
+            bad = _ssd_bwd_ref(x, dt, A, Bm, Cm, chunk, s0, dy, dfinal, fault)
+            moved = min(_rel_err(bad[i], ref[i]) for i in reached)
+            res[f"fault_{fault}"] = moved
+            check(moved > 2 * SSD_BWD_BF16_REL, f"ssd_scan_bwd {what}: the fault {fault} moves "
+                  f"{[SSD_BWD_NAMES[i] for i in reached]} by {moved:.3e}, not clearly beyond "
+                  f"{SSD_BWD_BF16_REL}")
+            del bad
+    return res
+
+
+def _ssd_bwd_work(b, l, h, p, n, chunk, esize):
+    """(operations, bytes) of one SSD backward: per (batch, head, chunk of q
+    rows) 2 q^2 (2 P + 3 N) (G, dy.x^T, M^T dy, dG B, dG^T C) + 8 q P N (the
+    four state products); x, dy and dx, S_in (f32, one state per chunk), dt
+    and ddt, A and dA, B, C, dB and dC once, as training calls it (no initial
+    state, the final state unused)."""
+    q = min(chunk, l)
+    rows = [q] * (l // q) + ([l % q] if l % q else [])
+    flops = b * h * sum(2 * r * r * (2 * p + 3 * n) + 8 * r * p * n for r in rows)
+    nbytes = (esize * (3 * b * l * h * p + 4 * b * l * n) + 4 * b * len(rows) * h * p * n
+              + 4 * (2 * b * l * h + 2 * h))
+    return flops, nbytes
+
+
+def _ssd_bwd_rows(ctx, gen, flush) -> dict:
+    """The SSD backward kernels (ssd_scan_bwd.cu) against their plain
+    backward: the sweep in f32 and bf16, then the training microbatches of
+    zamba2-2.7b (the kernel table's row: the train phase's hybrid run) and
+    mamba2-130m with the planted faults, two calls bit-identical, timed (per
+    call after an L2 flush, and device alone) beside the plain backward and
+    the bound. No single PyTorch call computes this function: no library
+    time."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import SSD_BWD_BF16_REL, ssd_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
+
+    worst = {"f32": 0.0, "bf16": 0.0}
+    for case in SSD_BWD_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = _ssd_bwd_check(gen, *case, dtype)
+            key = "f32" if dtype == torch.float32 else "bf16"
+            worst[key] = max(worst[key], r[key])
+    say(f"[kernels] ssd_scan_bwd sweep ok ({2 * len(SSD_BWD_SWEEP)} cases: ragged L, L < Q, "
+        f"initial states (dinit), a nonzero final-state gradient, a partial head group, every P "
+        f"and N): f32 max abs err / max(1, max|ref|) {worst['f32']:.3e} (limit "
+        f"{SSD_BWD_F32_TOL}), bf16 relative error of dx, ddt, dA, dB, dC, dinit "
+        f"{worst['bf16']:.3e} (limit {SSD_BWD_BF16_REL})")
+    row = None
+    for arch, (b, l, h, p, n, chunk) in SSD_BWD_TRAIN.items():
+        f32 = _ssd_bwd_check(gen, b, l, h, p, n, chunk, False, torch.float32)
+        del f32["inputs"]
+        r = _ssd_bwd_check(gen, b, l, h, p, n, chunk, False, torch.bfloat16, faults=True)
+        x, dt, A, Bm, Cm, s_in, dy, _ = r.pop("inputs")
+
+        def kernel():  # as training calls it: no initial state, the final state unused
+            return ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, None, chunk=chunk, with_dinit=False)
+
+        first, again = kernel(), kernel()
+        check(all(torch.equal(u, v) for u, v in zip(first[:5], again[:5], strict=True)),
+              f"ssd_scan_bwd at {arch}: two calls on the same inputs differ")
+        del first, again
+
+        def plain():
+            ssd_chunked_bwd(x, dt, A, Bm, Cm, chunk, None, s_in, dy, None)
+
+        t = dict(ms=_time_ms(kernel, iters=10, flush=flush),
+                 device_ms=_time_ms(kernel, iters=10, flush=flush, device_only=True),
+                 plain_ms=_time_ms(plain, iters=3, flush=flush),
+                 kernels=_kernel_ms(kernel, ("ssd_state_bwd", "ssd_chunk_bwd", "ssd_bwd_reduce")),
+                 **_bound(*_ssd_bwd_work(b, l, h, p, n, chunk, 2), "torch.bfloat16"))
+        k = t["kernels"]
+        say(f"[kernels] ssd_scan_bwd ({arch}) at B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16 "
+            f"(forward route {r['route']}): kernels {t['ms']:.4f} ms per call (device alone "
+            f"{t['device_ms']:.4f} ms: ssd_state_bwd {k['ssd_state_bwd']:.4f} + ssd_chunk_bwd "
+            f"{k['ssd_chunk_bwd']:.4f} + ssd_bwd_reduce {k['ssd_bwd_reduce']:.4f} ms profiled; two "
+            f"calls bit-identical), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), library none; f32 max abs err / max(1, max|ref|) "
+            f"{f32['f32']:.3e} (limit {SSD_BWD_F32_TOL}); bf16 relative error {r['bf16']:.3e} "
+            f"(limit {SSD_BWD_BF16_REL}; planted faults: dS not carried across the middle chunk "
+            f"moves dx, ddt, dA, dB by at least {r['fault_dS']:.3e}, the reverse cumsum of dcums "
+            f"dropped moves ddt, dA by at least {r['fault_cumsum']:.3e}) [{ctx['card']}]")
+        if row is None:
+            row = dict(
+                name="ssd_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                replaces="src/repro/models/ssm.py:64 (XLA's autodiff of the plain scan "
+                         "ssd_chunked; the Pallas kernel has no gradient)",
+                max_abs_err=r["max_abs_err"], rel_err=r["bf16"], rel_limit=SSD_BWD_BF16_REL,
+                ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"], library_ms=None,
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                shape=f"{arch} B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16")
+        del x, dt, A, Bm, Cm, s_in, dy
+        torch.cuda.empty_cache()
     return row
 
 
@@ -1026,28 +1228,33 @@ def _ssd_controls(x, dt, A, Bm, Cm, chunk, y32) -> dict:
     return dict(diagonal=_rel_err(y32 - diag, y32), s_in=_rel_err(dropped, y32))
 
 
-def _ssd_kernel_ms(ssd_args, kernel) -> dict:
-    """Device time alone of each kernel the route launches, mean over 10
-    calls under torch.profiler, by kernel name (ssd_state_pass,
-    ssd_chunk_out, ssd_scan_kernel)."""
+def _kernel_ms(call, names) -> dict:
+    """Device time alone of each kernel ``call`` launches whose name holds
+    one of ``names``, mean over 10 calls under torch.profiler, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.ssd_scan.ops import ssd
-
-    x, dt, A, Bm, Cm = ssd_args
-    ssd(x, dt, A, Bm, Cm, kernel=kernel)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
-            ssd(x, dt, A, Bm, Cm, kernel=kernel)
+            call()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        for name in ("ssd_state_pass", "ssd_chunk_out", "ssd_scan_kernel"):
+        for name in names:
             if name in e.key and e.self_device_time_total > 0:
                 out[name] = e.self_device_time_total / e.count / 1e3
     return out
+
+
+def _ssd_kernel_ms(ssd_args, kernel) -> dict:
+    """`_kernel_ms` of the kernels the forward's route launches
+    (ssd_state_pass, ssd_chunk_out, ssd_scan_kernel)."""
+    from repro_torch.kernels.ssd_scan.ops import ssd
+
+    return _kernel_ms(lambda: ssd(*ssd_args, kernel=kernel),
+                      ("ssd_state_pass", "ssd_chunk_out", "ssd_scan_kernel"))
 
 
 def _ssd_checks(ctx, gen, flush) -> dict:
@@ -2722,12 +2929,15 @@ def phase_sched(ctx) -> None:
 
 
 # ---------------------------------------------------------------------- train
-TRAIN_ARCH = "minicpm-2b"
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 6, 2048, 8, 2
-# Picked by a sweep of this run on an H100 (PERF.md §6): at 3e-5 to 3e-4
-# five updates move the loss less than its spread from batch to batch (~0.02), at
+# The models trained whole, each with its learning rate, picked by a sweep of
+# `_train_full` on an H100 (PERF.md §6). minicpm-2b: at 3e-5 to 3e-4 five
+# updates move the loss less than its spread from batch to batch (~0.02), at
 # 1e-3 and above the loss spikes by the sixth step; 6e-4 learns without a spike.
-TRAIN_LR = 6e-4
+# zamba2-2.7b: of 3e-4, 6e-4, 1e-3 and 2e-3, six updates lower the first
+# batch's loss most at 3e-4 (10.888 -> 10.453; 10.591, 10.761, 11.113), and
+# from 1e-3 up the loss spikes within the six steps.
+TRAIN_RUNS = (("minicpm-2b", 6e-4), ("zamba2-2.7b", 3e-4))
 TRAIN_PEAK_LIMIT = 72e9  # bytes of device memory; above it the global batch is halved
 TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 2e-5, 1e-4  # card against CPU, f32, as the CPU tests
 PEAK_SOURCE = "989 TFLOP/s dense bf16, NVIDIA H100 SXM data sheet"
@@ -2746,23 +2956,47 @@ def _flat_tree(tree, prefix=""):
     return out
 
 
-def _train_launches():
+def _train_kernels() -> dict:
     from repro_torch.kernels.prefill_attention.ops import prefill_attention, prefill_attention_bwd
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_bwd
 
-    return prefill_attention.launches, prefill_attention_bwd.launches
+    return dict(prefill_fwd=prefill_attention, prefill_bwd=prefill_attention_bwd, ssd_fwd=ssd,
+                ssd_bwd=ssd_bwd)
+
+
+def _train_launches() -> dict:
+    """Launches of the kernels training runs, by kernel, since the last zero."""
+    return {name: fn.launches for name, fn in _train_kernels().items()}
 
 
 def _zero_train_launches():
-    from repro_torch.kernels.prefill_attention.ops import prefill_attention, prefill_attention_bwd
+    for fn in _train_kernels().values():
+        fn.launches = 0
 
-    prefill_attention.launches = prefill_attention_bwd.launches = 0
+
+def _train_launches_per_step(cfg, n_micro: int) -> dict:
+    """The kernel launches one train step must make: per microbatch each
+    attention layer (once per use of zamba2's shared block) and each Mamba2
+    layer launch their forward twice (remat) and their backward once."""
+    attn = ssm = 0
+    if cfg.family == "ssm":
+        ssm = cfg.num_layers
+    elif cfg.family == "hybrid":
+        ssm, attn = cfg.num_layers, cfg.num_layers // cfg.hybrid_period
+    else:
+        attn = cfg.num_layers
+    return dict(prefill_fwd=2 * attn * n_micro, prefill_bwd=attn * n_micro,
+                ssd_fwd=2 * ssm * n_micro, ssd_bwd=ssm * n_micro)
 
 
 def _train_parity(ctx) -> None:
-    """llama3-8b-smoke and minicpm-2b-smoke in f32: the loss and gradients of
-    one train step at 1 and 2 microbatches on the card (the kernels) against
-    the CPU (the plain versions), from the same parameters and batch, and
-    the parameters after the AdamW update."""
+    """llama3-8b-smoke, minicpm-2b-smoke, mamba2-130m-smoke and
+    zamba2-2.7b-smoke in f32: the loss and gradients of one train step at 1
+    and 2 microbatches on the card (the kernels: prefill attention and the
+    SSD scan, forward and backward) against the CPU (the plain versions),
+    from the same parameters and batch, and the parameters after the AdamW
+    update; each kernel of the model's path must have launched as often as
+    a step needs."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2771,7 +3005,7 @@ def _train_parity(ctx) -> None:
     from repro_torch.training.optimizer import OptimizerConfig, adamw_update, init_opt_state
     from repro_torch.training.train_step import loss_and_grad_accum
 
-    for arch in ("llama3-8b-smoke", "minicpm-2b-smoke"):
+    for arch in ("llama3-8b-smoke", "minicpm-2b-smoke", "mamba2-130m-smoke", "zamba2-2.7b-smoke"):
         cfg = get_config(arch).replace(dtype="float32")
         model = build_model(cfg)
         batch = SyntheticDataset(cfg, DataConfig(seq_len=64, global_batch=4)).batch_at(0)
@@ -2788,8 +3022,10 @@ def _train_parity(ctx) -> None:
                 runs[dev] = (float(loss), _tree_to(grads, "cpu"), _tree_to(params, "cpu"),
                              launched)
             (lc, gc, pc, _), (lg, gg, pg, launched) = runs["cpu"], runs[ctx["device"]]
-            check(min(launched) > 0, f"[train] {arch} n_micro={n_micro}: the prefill kernels "
-                  f"did not launch on the card (forward, backward {launched})")
+            # one loss_and_grad_accum: the launches of a step
+            want = _train_launches_per_step(cfg, n_micro)
+            check(launched == want, f"[train] {arch} n_micro={n_micro}: kernel launches on the "
+                  f"card {launched}, expected {want}")
             check(abs(lc - lg) <= TRAIN_LOSS_TOL, f"[train] {arch} n_micro={n_micro}: loss on "
                   f"the card {lg} against the CPU's {lc}")
             gcf, ggf = _flat_tree(gc), _flat_tree(gg)
@@ -2805,8 +3041,7 @@ def _train_parity(ctx) -> None:
             say(f"[train] parity {arch} f32 n_micro={n_micro}: loss card {lg:.6f} cpu {lc:.6f} "
                 f"(tol {TRAIN_LOSS_TOL}); worst grad leaf {worst} relative error "
                 f"{rel[worst]:.3e} (limit {TRAIN_GRAD_REL}); params after AdamW max abs diff "
-                f"{perr:.3e}; kernel launches on the card forward {launched[0]} backward "
-                f"{launched[1]} [{ctx['card']}]")
+                f"{perr:.3e}; kernel launches on the card {launched} [{ctx['card']}]")
 
 
 def _train_resume(ctx) -> None:
@@ -2858,10 +3093,35 @@ def _train_resume(ctx) -> None:
         f"[{ctx['card']}]")
 
 
-def _train_full(ctx, global_batch: int) -> dict:
-    """minicpm-2b whole in bf16 (random weights from seed 0): TRAIN_STEPS
-    AdamW steps at ``global_batch`` x TRAIN_SEQ tokens, TRAIN_MICRO
-    microbatches, remat, WSD warm-up 2. Returns the run's readings."""
+def _train_flops(cfg, params, tokens: int) -> float:
+    """Model FLOPs of one step at ``tokens`` tokens of TRAIN_SEQ, forward and
+    backward, no recompute counted: 6 N per token, N counting zamba2's
+    shared block once per use (count_params counts it once); causal
+    attention's 6 L H Dh S per token, L the attention layers (the shared
+    block's uses); and for the Mamba2 layers three times the SSD scan's
+    forward operations (`_ssd_work`: the forward once, the backward twice)."""
+    n = cfg.count_params()
+    attn = ssm = 0
+    if cfg.family == "hybrid":
+        attn, ssm = cfg.num_layers // cfg.hybrid_period, cfg.num_layers
+        n += (attn - 1) * sum(t.numel() for t in _leaves(params["shared_attn"]))
+    elif cfg.family == "ssm":
+        ssm = cfg.num_layers
+    else:
+        attn = cfg.num_layers
+    flops = tokens * (6 * n + 6 * attn * cfg.num_heads * cfg.resolved_head_dim * TRAIN_SEQ)
+    if ssm:
+        scan, _ = _ssd_work(tokens // TRAIN_SEQ, TRAIN_SEQ, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                            cfg.ssm_state_dim, cfg.ssm_chunk, 2)
+        flops += 3 * ssm * scan
+    return flops
+
+
+def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
+    """``arch`` whole in bf16 (random weights from seed 0): TRAIN_STEPS AdamW
+    steps at ``global_batch`` x TRAIN_SEQ tokens, TRAIN_MICRO microbatches,
+    remat, WSD warm-up 2 to ``lr``; each step's kernel launches must be
+    exactly `_train_launches_per_step`'s. Returns the run's readings."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2870,30 +3130,35 @@ def _train_full(ctx, global_batch: int) -> dict:
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_step import make_train_step
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(0, device=ctx["device"])
     opt = init_opt_state(params)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    say(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
-        f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+    trunk = (f"{cfg.num_layers} Mamba2 layers ({cfg.ssm_num_heads} SSD heads x "
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state_dim}, chunk {cfg.ssm_chunk})"
+             if cfg.family in ("ssm", "hybrid") else f"{cfg.num_layers} layers")
+    if cfg.family == "hybrid":
+        trunk += (f", a shared attention block after every {cfg.hybrid_period} "
+                  f"({cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim})")
+    elif cfg.family != "ssm":
+        trunk += f", heads {cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim}"
+    say(f"[train] {cfg.name}: {trunk}, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.4f} B random parameters (seed 0; "
         f"count_params {cfg.count_params() / 1e9:.4f} B) and AdamW state in "
         f"{time.perf_counter() - t0:.1f} s")
     ds = SyntheticDataset(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=global_batch))
-    step_fn = make_train_step(model, OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+    step_fn = make_train_step(model, OptimizerConfig(lr=lr, warmup_steps=2,
                                                      stable_steps=TRAIN_STEPS, decay_steps=1),
                               n_micro=TRAIN_MICRO)
     tokens = global_batch * TRAIN_SEQ
-    hd = cfg.resolved_head_dim
-    # model FLOPs of a step: 6 N per token, plus causal attention's 6 L H Dh S
-    # per token (forward and backward, no recompute counted)
-    flops = tokens * (6 * cfg.count_params() + 6 * cfg.num_layers * cfg.num_heads * hd * TRAIN_SEQ)
+    flops = _train_flops(cfg, params, tokens)
+    want = _train_launches_per_step(cfg, TRAIN_MICRO)
     torch.cuda.reset_peak_memory_stats()
     _zero_train_launches()
-    losses, out = [], dict(step_s=[], peak=[])
+    losses, out = [], dict(step_s=[], peak=[], gnorm=[])
     for i in range(TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).to(ctx["device"]) for k, v in ds.batch_at(i).items()}
         before = _train_launches()
@@ -2902,25 +3167,25 @@ def _train_full(ctx, global_batch: int) -> dict:
         params, opt, m = step_fn(params, opt, batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - ts
-        fwd, bwd = (a - b for a, b in zip(_train_launches(), before, strict=True))
-        loss, gnorm, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        launched = {k: v - before[k] for k, v in _train_launches().items()}
+        loss, gnorm, lr_i = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
         peak = torch.cuda.max_memory_allocated()
         losses.append(loss)
         out["step_s"].append(dt)
         out["peak"].append(peak)
-        say(f"[train] {cfg.name} step {i}: loss {loss:.4f} grad_norm {gnorm:.4f} lr {lr:.3e}; "
+        out["gnorm"].append(gnorm)
+        say(f"[train] {cfg.name} step {i}: loss {loss:.4f} grad_norm {gnorm:.4f} lr {lr_i:.3e}; "
             f"{dt:.3f} s, {tokens / dt:.0f} tokens/s, model FLOPs {flops / dt / 1e12:.1f} "
-            f"TFLOP/s = {flops / dt / 989e12:.4f} of the peak ({PEAK_SOURCE}); prefill kernel "
-            f"launches forward {fwd} backward {bwd}; peak memory {peak / 1e9:.2f} GB "
-            f"[{ctx['card']}]")
-        check(all(map(math.isfinite, (loss, gnorm))), f"[train] step {i}: loss {loss}, grad "
-              f"norm {gnorm}")
-        want = cfg.num_layers * TRAIN_MICRO
-        check(bwd == want and fwd == 2 * want, f"[train] step {i}: forward {fwd} and backward "
-              f"{bwd} launches, expected {2 * want} and {want} (remat runs each forward twice)")
+            f"TFLOP/s = {flops / dt / 989e12:.4f} of the peak ({PEAK_SOURCE}); kernel launches "
+            f"{launched}; peak memory {peak / 1e9:.2f} GB [{ctx['card']}]")
+        check(all(map(math.isfinite, (loss, gnorm))), f"[train] {cfg.name} step {i}: loss "
+              f"{loss}, grad norm {gnorm}")
+        check(launched == want, f"[train] {cfg.name} step {i}: kernel launches {launched}, "
+              f"expected {want} (remat runs each forward twice)")
         if i == 0 and peak > TRAIN_PEAK_LIMIT:
             break
-    out.update(losses=losses, launches=_train_launches(), tokens=tokens, flops=flops)
+    out.update(losses=losses, launches=_train_launches(), tokens=tokens, flops=flops, lr=lr,
+               want=want)
     del m
     if len(losses) == TRAIN_STEPS:  # the first batch again, after training (batch-free signal)
         first = {k: torch.from_numpy(v).to(ctx["device"]) for k, v in ds.batch_at(0).items()}
@@ -2956,56 +3221,74 @@ def _train_profile(step_fn, params, opt, ds, device) -> dict:
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + (k1 - k0) / 1e3
         names[name] = names.get(name, 0.0) + (k1 - k0) / 1e3
     top = sorted(names.items(), key=lambda kv: -kv[1])
-    bwd = [kv for kv in top if kernel_group(kv[0]) == "prefill_attention_bwd"]
+    bwd = [kv for kv in top if kernel_group(kv[0]) in ("prefill_attention_bwd", "ssd_scan_bwd")]
     return dict(wall_ms=1e3 * wall, busy_ms=sum(groups.values()), groups=groups, top=top[:8],
                 bwd=bwd)
 
 
 def phase_train(ctx) -> None:
     """Training on the card: card-vs-CPU parity at smoke size, a
-    bit-identical resume from a checkpoint, then minicpm-2b whole."""
-    import torch
-
+    bit-identical resume from a checkpoint, then minicpm-2b and zamba2-2.7b
+    whole."""
     _free()
     _train_parity(ctx)
     _train_resume(ctx)
+    for arch, lr in TRAIN_RUNS:
+        _train_run(ctx, arch, lr)
+
+
+def _train_run(ctx, arch: str, lr: float) -> None:
+    """One model trained whole (`_train_full`, the global batch halved if the
+    first step's peak passes TRAIN_PEAK_LIMIT): every loss falls in the sense
+    the checks ask, and the run's readings are printed."""
+    import torch
+
     _free()
     gb = TRAIN_BATCH
-    r = _train_full(ctx, gb)
+    r = _train_full(ctx, arch, lr, gb)
     if len(r["losses"]) < TRAIN_STEPS:
-        say(f"[train] peak memory {r['peak'][0] / 1e9:.2f} GB after the first step at global "
-            f"batch {gb}, above {TRAIN_PEAK_LIMIT / 1e9:.0f} GB: the global batch is halved")
+        say(f"[train] {arch}: peak memory {r['peak'][0] / 1e9:.2f} GB after the first step at "
+            f"global batch {gb}, above {TRAIN_PEAK_LIMIT / 1e9:.0f} GB: the global batch is "
+            f"halved")
         _free()
         gb //= 2
-        r = _train_full(ctx, gb)
+        r = _train_full(ctx, arch, lr, gb)
     _free()
     losses = r["losses"]
-    check(losses[-1] < losses[0], f"[train] the loss did not fall: {losses}")
-    check(r["first_after"] < losses[0], f"[train] the first batch's loss rose from "
+    check(losses[-1] < losses[0], f"[train] {arch}: the loss did not fall: {losses}")
+    check(r["first_after"] < losses[0], f"[train] {arch}: the first batch's loss rose from "
           f"{losses[0]} to {r['first_after']} over {TRAIN_STEPS} steps")
     steady = r["step_s"][1:]
     mean = sum(steady) / len(steady)
-    ctx.setdefault("launches", {})["prefill_attention_bwd"] = r["launches"][1]
-    say(f"[train] {TRAIN_ARCH} whole, bf16, global batch {gb} x {TRAIN_SEQ} tokens, "
-        f"{TRAIN_MICRO} microbatches, remat, lr {TRAIN_LR}: {TRAIN_STEPS} steps, loss "
+    launches = ctx.setdefault("launches", {})
+    if arch == "minicpm-2b":
+        launches["prefill_attention_bwd"] = r["launches"]["prefill_bwd"]
+    else:
+        launches["ssd_scan_bwd"] = r["launches"]["ssd_bwd"]
+    say(f"[train] {arch} whole, bf16, global batch {gb} x {TRAIN_SEQ} tokens, "
+        f"{TRAIN_MICRO} microbatches, remat, lr {lr}: {TRAIN_STEPS} steps, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (the first batch's {losses[0]:.4f} -> "
-        f"{r['first_after']:.4f} after training); steps 1-{TRAIN_STEPS - 1} mean {mean:.3f} s, "
-        f"{r['tokens'] / mean:.0f} tokens/s, model FLOPs share {r['flops'] / mean / 989e12:.4f} "
-        f"of the peak ({PEAK_SOURCE}); first step {r['step_s'][0]:.3f} s; peak memory "
-        f"{max(r['peak']) / 1e9:.2f} GB ({torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
-        f" GB on the card); prefill kernel launches forward {r['launches'][0]} backward "
-        f"{r['launches'][1]} [{ctx['card']}]")
+        f"{r['first_after']:.4f} after training); grad norms "
+        f"{', '.join(f'{g:.4f}' for g in r['gnorm'])}; steps 1-{TRAIN_STEPS - 1} mean "
+        f"{mean:.3f} s, {r['tokens'] / mean:.0f} tokens/s, model FLOPs {r['flops']:.4e} a step "
+        f"(`_train_flops`), share {r['flops'] / mean / 989e12:.4f} of the peak ({PEAK_SOURCE}); "
+        f"first step {r['step_s'][0]:.3f} s; peak memory {max(r['peak']) / 1e9:.2f} GB "
+        f"({torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB on the card); kernel "
+        f"launches over the {TRAIN_STEPS} steps {r['launches']} ({r['want']} a step) "
+        f"[{ctx['card']}]")
     pr = r["profile"]
-    say(f"[train] one more step under torch.profiler: wall {pr['wall_ms']:.1f} ms, device busy "
-        f"{pr['busy_ms']:.1f} ms (idle {100 * (1 - pr['busy_ms'] / pr['wall_ms']):.1f}% of the "
-        f"profiled wall, an upper bound); by kernel group: " + ", ".join(
+    say(f"[train] {arch}: one more step under torch.profiler: wall {pr['wall_ms']:.1f} ms, "
+        f"device busy {pr['busy_ms']:.1f} ms (idle "
+        f"{100 * (1 - pr['busy_ms'] / pr['wall_ms']):.1f}% of the profiled wall, an upper "
+        f"bound); by kernel group: " + ", ".join(
             f"{g} {ms:.1f} ms ({100 * ms / pr['busy_ms']:.1f}%)"
             for g, ms in sorted(pr["groups"].items(), key=lambda kv: -kv[1]))
         + f" [{ctx['card']}]")
-    say("[train] top kernels of the profiled step: " + "; ".join(
+    say(f"[train] {arch}: top kernels of the profiled step: " + "; ".join(
         f"{name[:70]} {ms:.1f} ms" for name, ms in pr["top"]))
-    say("[train] backward kernels of the profiled step: " + "; ".join(
+    say(f"[train] {arch}: backward kernels of the profiled step: " + "; ".join(
         f"{name[:70]} {ms:.1f} ms" for name, ms in pr["bwd"]))
+
 
 # ---------------------------------------------------------------------- main
 def main() -> int:
@@ -3042,8 +3325,8 @@ def main() -> int:
     for r in rows:
         r.pop("shape")
         # attention: the slot serve; prefill_attention_bwd: the minicpm-2b training run;
-        # ssd_scan: the zamba2 prefill; sched_scan: the sched phase's decisions; counts
-        # zeroed before each
+        # ssd_scan: the zamba2 prefill; ssd_scan_bwd: the zamba2-2.7b training run;
+        # sched_scan: the sched phase's decisions; counts zeroed before each
         r["launches"] = ctx["launches"][r["name"]]
     say(json.dumps({"kernels": rows}))
     say(f"card: {ctx['card']}")

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("prefill_attention", "prefill_attention_bwd", "decode_attention", "ssd_scan",
-           "sched_scan")
+           "ssd_scan_bwd", "sched_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -76,7 +76,9 @@
 // 256 threads as a 16 x 16 grid (ty, tx): score columns tx + 16 c, output
 // columns tx + 16 e, state entries (ty * P/16 + i, tx + 16 c). Tiles have
 // an odd row stride so that the 16 rows a half-warp reads fall in 16
-// different banks.
+// different banks. Under grad (ssd_scan/ops.py::SSDScanFn) it also writes
+// the state at every chunk start to S_in, which the backward reads
+// (ssd_scan_bwd.cu); the serving path passes no S_in.
 //
 // Both routes: the TPU kernel's sequential chunk grid axis and its VMEM
 // state scratch become a loop over chunks inside a block. Rows past L are
@@ -104,7 +106,8 @@ __global__ void __launch_bounds__(NT)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ init_state,
-                T* __restrict__ y, float* __restrict__ final_state, int L, int H, int Q) {
+                T* __restrict__ y, float* __restrict__ final_state, float* __restrict__ s_in,
+                int L, int H, int Q) {
   constexpr int LDN = N + 1, LDP = P + 1, LDS = QMAX + 1;
   constexpr int RPT = RB / 16;    // score and output rows per thread
   constexpr int CPT = QMAX / 16;  // score column groups
@@ -130,6 +133,10 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   for (int l0 = 0; l0 < L; l0 += Q) {
     const int nq = min(Q, L - l0);
+    if (s_in != nullptr) {  // the state at the chunk's start, for the backward
+      float* so = s_in + (((int64_t)b * ((L + Q - 1) / Q) + l0 / Q) * H + h) * P * N;
+      for (int i = tid; i < P * N; i += NT) so[i] = Ss[(i / N) * LDN + i % N];
+    }
     {
       RowTile<T, P, QMAX, NT> xt;
       xt.load(x + (((int64_t)b * L + l0) * H + h) * P, (int64_t)H * P, nq);
@@ -291,8 +298,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 template <typename T, int P, int N>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-           const void* init_state, void* y, void* final_state, int B, int L, int H, int Q,
-           cudaStream_t stream) {
+           const void* init_state, void* y, void* final_state, void* s_in, int B, int L, int H,
+           int Q, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<P, N>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -306,31 +313,31 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<const float*>(init_state), static_cast<T*>(y),
-      static_cast<float*>(final_state), L, H, Q);
+      static_cast<float*>(final_state), static_cast<float*>(s_in), L, H, Q);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int P>
 int dispatch_n(int N, const void* x, const void* dt, const void* A, const void* Bm,
-               const void* Cm, const void* s0, void* y, void* fs, int B, int L, int H, int Q,
-               cudaStream_t st) {
+               const void* Cm, const void* s0, void* y, void* fs, void* si, int B, int L, int H,
+               int Q, cudaStream_t st) {
   switch (N) {
-    case 16: return launch<T, P, 16>(x, dt, A, Bm, Cm, s0, y, fs, B, L, H, Q, st);
-    case 32: return launch<T, P, 32>(x, dt, A, Bm, Cm, s0, y, fs, B, L, H, Q, st);
-    case 64: return launch<T, P, 64>(x, dt, A, Bm, Cm, s0, y, fs, B, L, H, Q, st);
-    case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, s0, y, fs, B, L, H, Q, st);
+    case 16: return launch<T, P, 16>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
+    case 32: return launch<T, P, 32>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
+    case 64: return launch<T, P, 64>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
+    case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 int dispatch(int P, int N, const void* x, const void* dt, const void* A, const void* Bm,
-             const void* Cm, const void* s0, void* y, void* fs, int B, int L, int H, int Q,
-             cudaStream_t st) {
+             const void* Cm, const void* s0, void* y, void* fs, void* si, int B, int L, int H,
+             int Q, cudaStream_t st) {
   switch (P) {
-    case 16: return dispatch_n<T, 16>(N, x, dt, A, Bm, Cm, s0, y, fs, B, L, H, Q, st);
-    case 32: return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, s0, y, fs, B, L, H, Q, st);
-    case 64: return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, s0, y, fs, B, L, H, Q, st);
+    case 16: return dispatch_n<T, 16>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
+    case 32: return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
+    case 64: return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -780,25 +787,30 @@ int dispatch(int P, int N, int Q, const void* x, const void* dt, const void* A, 
 // x (B, L, H, P), dt (B, L, H) f32, A (H,) f32, Bm/Cm (B, L, N), init_state
 // (B, H, P, N) f32 or null (zeros), y (B, L, H, P), final_state (B, H, P, N)
 // f32; all contiguous, on the stream's device; chunks of 1 <= Q <= 128 rows.
-// dtype (of x, Bm, Cm, y): 0 = float32, 1 = bfloat16. s_in: null for the
-// scalar kernel, or the tensor-core route's f32 scratch (B, ceil(L / Q), H,
-// P, N), which takes bf16 with Q in {64, 128}, P in {32, 64}, N in {32, 64,
-// 128} (ssd_scan/ops.py::route) and launches ssd_state_pass, then
-// ssd_chunk_out. Returns the first failed launch's cudaError_t, else 0.
+// dtype (of x, Bm, Cm, y): 0 = float32, 1 = bfloat16. s_in: f32 (B,
+// ceil(L / Q), H, P, N), the state at every chunk start. route 1 is the
+// tensor-core route, which takes bf16 with Q in {64, 128}, P in {32, 64}, N
+// in {32, 64, 128} (ssd_scan/ops.py::route), needs s_in as its scratch and
+// launches ssd_state_pass, then ssd_chunk_out; route 0 the scalar kernel,
+// which writes s_in where it is given (the backward, ssd_scan_bwd.cu, reads
+// it) and skips it where it is null. Returns the first failed launch's
+// cudaError_t, else 0.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
                               const void* Cm, const void* init_state, void* y,
                               void* final_state, void* s_in, int B, int L, int H, int P, int N,
-                              int Q, int dtype, void* stream) {
+                              int Q, int dtype, int route, void* stream) {
   if (Q < 1 || Q > QMAX || L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (s_in != nullptr) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    if (dtype != 1 || s_in == nullptr) return (int)cudaErrorInvalidValue;
     return tc::dispatch(P, N, Q, x, dt, A, Bm, Cm, init_state, y, final_state, s_in, B, L, H, s);
   }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(P, N, x, dt, A, Bm, Cm, init_state, y, final_state, B, L, H, Q, s);
+    return dispatch<float>(P, N, x, dt, A, Bm, Cm, init_state, y, final_state, s_in, B, L, H, Q,
+                           s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(P, N, x, dt, A, Bm, Cm, init_state, y, final_state, B, L,
-                                   H, Q, s);
+    return dispatch<__nv_bfloat16>(P, N, x, dt, A, Bm, Cm, init_state, y, final_state, s_in, B,
+                                   L, H, Q, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -40,6 +40,8 @@ from repro_torch.serving.session import ServeSession
 
 _GROUPS = (
     ("prefill_attention_bwd", ("prefill_bwd_",)),
+    ("ssd_scan_bwd", ("ssd_state_bwd", "ssd_chunk_bwd", "ssd_bwd_reduce")),
+    ("ssd_scan", ("ssd_state_pass", "ssd_chunk_out", "ssd_scan_kernel")),
     ("prefill_attention", ("prefill_attention_wgmma", "prefill_attention_f32")),
     ("decode_attention", ("decode_split", "decode_combine")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")),

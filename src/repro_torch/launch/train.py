@@ -8,9 +8,13 @@ trains on the plain path on the CPU). Weights are random, drawn from seed 0
 in the config's dtype. With ``--ckpt-dir`` a run resumes from the newest
 checkpoint there (the reference's on-disk format), saves every
 ``--ckpt-every`` steps on a background thread and once at the end. On the
-card the dense families train whole at their published widths, e.g.
+card the dense, ssm and hybrid families train whole at their published
+widths (the attention and SSD scan kernels and their backward kernels),
+e.g.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
+        --steps 6 --batch 8 --seq 2048 --n-micro 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
         --steps 6 --batch 8 --seq 2048 --n-micro 2
 """
 from __future__ import annotations

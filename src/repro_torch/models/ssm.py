@@ -1,11 +1,12 @@
 """Mamba2 (SSD, state-space duality) block in PyTorch (port of
 ``repro.models.ssm``).
 
-The chunked SSD scan of prefill goes through the `ssd` wrapper: the
-hand-written kernel on the card, its plain version (``ssd_chunked``) on the
-CPU. The reference's ``ssm_forward`` calls ``ssd_chunked`` and never its
-TPU kernel; the port calls the kernel, held to the same function. Decode
-is the O(1)-per-token recurrence, in plain PyTorch.
+The chunked SSD scan of prefill and training goes through the `ssd`
+wrapper: the hand-written kernel on the card (under grad with its backward
+kernels, ``SSDScanFn``), its plain version (``ssd_chunked``) on the CPU.
+The reference's ``ssm_forward`` calls ``ssd_chunked`` and never its TPU
+kernel; the port calls the kernel, held to the same function. Decode is
+the O(1)-per-token recurrence, in plain PyTorch.
 
 Two departures from the reference, both recorded in ROADMAP §C:
 - C2: a right-padded prefill keeps the conv window of the W-1 rows that end

@@ -366,9 +366,10 @@ def forward_train(
     super-block of hybrid (its Mamba2 layers and the shared block), under
     ``remat`` recomputed in the backward (`torch.utils.checkpoint`, where
     the reference wraps the scanned body in ``jax.checkpoint``). On the
-    card the causal attention takes the prefill kernel and its backward;
-    the SSD scan has no backward kernel yet (ROADMAP A10b), so its wrapper
-    refuses ssm and hybrid training there."""
+    card the causal attention takes the prefill kernel and its backward,
+    and the SSD scan of ssm and hybrid layers its forward (writing the
+    state at every chunk start) and its backward kernels, through
+    ``SSDScanFn``; under remat each forward kernel runs twice."""
     _check_decoder(cfg)
     # tokens through F.embedding rather than indexing: its backward on the card
     # sums each row's gradients without atomics, so a resumed run is bit-identical

@@ -5,7 +5,11 @@ States are explicit trees like the parameters (f32 ``m``/``v``), computed
 in f32 as the reference computes them. Unlike the reference, which returns
 new arrays, `adamw_update` updates the parameters and the moments in place
 and returns the same tensors: a second copy of the f32 moments would not
-fit beside the model on one card at minicpm-2b's size.
+fit beside the model on one card at minicpm-2b's size. For the same reason
+each leaf is updated in slices of at most `SLICE` elements (`slices`): the
+arithmetic is the same element by element, but its f32 temporaries stay
+small where one stacked weight is large (zamba2-2.7b's in_proj stack holds
+1.4e9 parameters, 5.8 GB per f32 temporary).
 """
 from __future__ import annotations
 
@@ -27,6 +31,21 @@ class OptimizerConfig:
     stable_steps: int = 1000
     decay_steps: int = 100
     min_lr_frac: float = 0.1
+
+
+SLICE = 1 << 26  # elements of one slice of a leaf: 256 MB per f32 temporary
+
+
+def slices(*tensors: torch.Tensor):
+    """Matching 1-D views of at most `SLICE` elements of tensors of one
+    shape, in order, so that an elementwise update runs a slice at a time;
+    the tensors whole where one is not contiguous."""
+    if not all(t.is_contiguous() for t in tensors):
+        yield tensors
+        return
+    flat = [t.view(-1) for t in tensors]
+    for i in range(0, flat[0].numel(), SLICE):
+        yield tuple(f[i:i + SLICE] for f in flat)
 
 
 class OptState(NamedTuple):
@@ -84,7 +103,8 @@ def init_opt_state(params) -> OptState:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
+    return torch.sqrt(sum(torch.sum(torch.square(s.float())) for g in tree_leaves(tree)
+                          for (s,) in slices(g)))
 
 
 @torch.no_grad()
@@ -101,8 +121,9 @@ def adamw_update(
     b1, b2 = cfg.betas
     bc1 = 1.0 - b1 ** step.float()
     bc2 = 1.0 - b2 ** step.float()
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
-                          tree_leaves(state.v), strict=True):
+    leaves = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
+                 tree_leaves(state.v), strict=True)
+    for p, g, m, v in (s for leaf in leaves for s in slices(*leaf)):
         g = g.float() * scale
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * torch.square(g))

@@ -20,6 +20,7 @@ from repro_torch.training.optimizer import (
     OptimizerConfig,
     OptState,
     adamw_update,
+    slices,
     tree_leaves,
     tree_map,
     tree_unflatten,
@@ -50,7 +51,8 @@ def loss_and_grad_accum(
 ) -> Tuple[torch.Tensor, Dict]:
     """Mean loss + grads accumulated over microbatches: each microbatch's
     grads enter an f32 accumulator as ``g.float() / n_micro``, and its loss
-    as ``loss / n_micro``, as in the reference's scan."""
+    as ``loss / n_micro``, as in the reference's scan (a slice of a leaf at
+    a time, `optimizer.slices`)."""
     if n_micro <= 1:
         return _value_and_grad(model, params, batch)
     loss_acc = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
@@ -58,8 +60,9 @@ def loss_and_grad_accum(
                         params)
     for mb in _split_batch(batch, n_micro):
         loss, grads = _value_and_grad(model, params, mb)
-        for a, g in zip(tree_leaves(grad_acc), tree_leaves(grads), strict=True):
-            a.copy_(a + g.float() / n_micro)
+        for leaf in zip(tree_leaves(grad_acc), tree_leaves(grads), strict=True):
+            for a, g in slices(*leaf):
+                a.copy_(a + g.float() / n_micro)
         del grads
         loss_acc = loss_acc + loss / n_micro
     return loss_acc, grad_acc

@@ -36,7 +36,7 @@ from repro_torch.kernels.prefill_attention.ref import (  # noqa: E402
     prefill_attention_ref,
 )
 from repro_torch.kernels.sched_scan import ops as sched_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import ssd  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_bwd  # noqa: E402
 
 # (B, Sq, Skv, Hq, Hkv, Dh, logit cap, ragged kv_len)
 CASES = {
@@ -274,9 +274,10 @@ WRAPPERS = {
     "decode_attention": (
         lambda: decode_attention(_meta(1, 4, 16), _meta(1, 8, 2, 16), _meta(1, 8, 2, 16),
                                  _i32(1)), "decode_attention: q requires grad"),
-    "ssd_scan": (
-        lambda: ssd(_meta(1, 8, 2, 16), _meta(1, 8, 2), _meta(2), _meta(1, 8, 16),
-                    _meta(1, 8, 16)), "ssd_scan: x requires grad.*A10b"),
+    "ssd_scan": (  # the SSD scan's backward: ssd itself takes SSDScanFn under grad
+        lambda: ssd_bwd(_meta(1, 8, 2, 16), _meta(1, 8, 2), _meta(2), _meta(1, 8, 16),
+                        _meta(1, 8, 16), _meta(1, 1, 2, 16, 16), _meta(1, 8, 2, 16)),
+        "ssd_scan_bwd: x requires grad.*no double backward"),
     "prefill_attention_bwd": (
         lambda: prefill_attention_bwd(
             _meta(1, 4, 2, 16), _meta(1, 4, 2, 16), _meta(1, 4, 2, 16), _meta(1, 4, 2, 16),

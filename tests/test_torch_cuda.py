@@ -325,20 +325,53 @@ def test_prefill_backward_kernels_match_the_plain_backward(cuda, dtype):
 def test_wrappers_refuse_a_cuda_tensor_that_requires_grad(cuda):
     """No kernel wrapper returns a tensor without grad_fn for an input that
     requires grad: decode attention and the scheduler scans carry no
-    gradient, the SSD scan has no backward yet (ROADMAP A10b)."""
+    gradient (the SSD scan's, through SSDScanFn, is the next test)."""
     from repro_torch.kernels.sched_scan.ops import fcfs_scan
 
     q = torch.zeros(1, 4, 32, device=cuda, requires_grad=True)
     k = torch.zeros(1, 8, 2, 32, device=cuda)
     with pytest.raises(RuntimeError, match="decode_attention: q requires grad"):
         decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda))
-    x = torch.zeros(1, 40, 2, 16, device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="A10b"):
-        ssd(x, torch.zeros(1, 40, 2, device=cuda), -torch.ones(2, device=cuda),
-            torch.zeros(1, 40, 16, device=cuda), torch.zeros(1, 40, 16, device=cuda))
     a = torch.zeros(4, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="fcfs_scan: a_s requires grad"):
         fcfs_scan(a, torch.zeros(4, device=cuda), torch.zeros(1, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_gradient_on_the_card_matches_the_plain_backward(cuda, dtype):
+    """A small SSD gradient through `ssd` under grad (SSDScanFn, the forward
+    writing S_in and the backward kernels, ssd_scan_bwd.cu) against
+    `ssd_chunked_bwd` on the same inputs in f32 from the exact states: f32
+    within 1e-4 x max(1, max|ref|), bf16 within SSD_BWD_BF16_REL in relative
+    norm; a ragged L, an initial state, a loss on the final state."""
+    from repro_torch.kernels.ssd_scan.ops import SSD_BWD_BF16_REL, ssd_bwd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, l, h, p, n, chunk = 2, 300, 4, 64, 64, 128
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    leaves = [rnd(b, l, h, p, scale=0.5).to(dtype),
+              torch.rand((b, l, h), generator=gen, device=cuda) * 0.099 + 0.001,
+              -(torch.rand((h,), generator=gen, device=cuda) * 3.5 + 0.5),
+              rnd(b, l, n, scale=0.3).to(dtype), rnd(b, l, n, scale=0.3).to(dtype),
+              rnd(b, h, p, n)]
+    leaves = [t.requires_grad_() for t in leaves]
+    dy, dfinal = rnd(b, l, h, p).to(dtype), rnd(b, h, p, n)
+    n0 = ssd_bwd.launches
+    y, fs = ssd(*leaves[:5], chunk=chunk, init_state=leaves[5])
+    got = torch.autograd.grad([y, fs], leaves, [dy, dfinal])
+    assert ssd_bwd.launches == n0 + 1
+    with torch.no_grad():
+        f = [t.detach().float() for t in leaves]
+        ref = ssd_chunked_bwd(*f[:5], chunk, f[5], None, dy.float(), dfinal)
+    for g, r in zip(got, ref, strict=True):
+        if dtype == torch.float32:
+            assert float((g - r).abs().max()) <= 1e-4 * max(1.0, float(r.abs().max()))
+        else:
+            assert float((g.float() - r).norm() / r.norm()) <= SSD_BWD_BF16_REL
 
 
 def test_a_small_train_step_on_the_card_matches_the_cpu(cuda):

@@ -1,7 +1,7 @@
 """The training slice of the port against ``repro.training`` and the JAX
 model's loss: parameter counts, the synthetic data bit for bit, the WSD
 schedule and AdamW within 1e-6, the loss within 2e-5 and every gradient
-leaf within 1e-4 in relative norm for six smoke configs (f32, the port's
+leaf within 1e-4 in relative norm for seven smoke configs (f32, the port's
 ``attn_impl`` "auto" and "pallas" against JAX's "auto"; labels with -100),
 three train steps at 1 and 2 microbatches within 2e-4, checkpoints that
 cross between the packages bit for bit, and the launcher.
@@ -39,7 +39,7 @@ from repro_torch.training import train_step as tts  # noqa: E402
 LOSS_TOL = 2e-5
 GRAD_REL = 1e-4
 STEP_TOL = dict(rtol=2e-4, atol=2e-4)
-# the six smoke configs of the slice, with a sequence length each: gemma2's
+# the seven smoke configs of the slice, with a sequence length each: gemma2's
 # window (32) must bind; the moe groups (32 tokens) must fill
 TRAIN_ARCHS = {
     "llama3-8b-smoke": 24,
@@ -47,6 +47,7 @@ TRAIN_ARCHS = {
     "gemma2-9b-smoke": 48,
     "phi3.5-moe-42b-a6.6b-smoke": 32,
     "mamba2-130m-smoke": 32,
+    "zamba2-2.7b-smoke": 32,
     "seamless-m4t-medium-smoke": 32,
 }
 _JAX = {}
@@ -171,6 +172,41 @@ def test_adamw_update_equals_jax(rng):
                                    rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(_flat(ts.v)[name].numpy(), np.asarray(_flat(js.v)[name]),
                                    rtol=1e-6, atol=1e-6)
+
+
+def test_sliced_updates_equal_whole_ones(rng, monkeypatch):
+    """`optimizer.slices` at 7 elements (leaves of 15, 7 and 16 elements,
+    one non-contiguous grad taken whole) changes no bit of three AdamW
+    updates (no clipping) nor of the f32 gradient accumulated over two
+    microbatches, against whole leaves."""
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in (("a", (3, 5)), ("c", (7,)), ("d", (2, 2, 4)))}
+    grads = [{k: (rng.standard_normal(v.shape) * 0.05).astype(np.float32)
+              for k, v in params.items()} for _ in range(3)]
+    cfg = topt.OptimizerConfig(lr=1e-2, warmup_steps=2, stable_steps=3, decay_steps=2)
+    arch = "llama3-8b-smoke"
+    model, mparams = _port(arch, _jax_model(arch)[2])
+    batch = _torch_batch(_batch(arch, 16))
+    runs = []
+    for size in (topt.SLICE, 7):
+        monkeypatch.setattr(topt, "SLICE", size)
+        p = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+        s = topt.init_opt_state(p)
+        norms = []
+        for g in grads:
+            g = {k: torch.from_numpy(v) for k, v in g.items()}
+            g["a"] = g["a"].t().contiguous().t()  # non-contiguous: taken whole
+            p, s, m = topt.adamw_update(cfg, p, g, s)
+            assert float(m["grad_norm"]) < 1.0  # no clipping: every bit must agree
+            norms.append(float(m["grad_norm"]))
+        _, acc = tts.loss_and_grad_accum(model, mparams, batch, 2)
+        runs.append((p, s.m, s.v, norms, acc))
+    (p0, m0, v0, n0, a0), (p1, m1, v1, n1, a1) = runs
+    for whole, sliced in ((p0, p1), (m0, m1), (v0, v1), (a0, a1)):
+        fw, fs = _flat(whole), _flat(sliced)
+        assert all(torch.equal(fw[k], fs[k]) for k in fw), [k for k in fw
+                                                           if not torch.equal(fw[k], fs[k])]
+    np.testing.assert_allclose(n1, n0, rtol=1e-6)
 
 
 # ------------------------------------------------------------ loss and grads
