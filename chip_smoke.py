@@ -57,19 +57,25 @@ Phases, each printed on its own lines:
            V past kv_len leaving dq, dk, dv bit-identical (both dtypes);
            timed beside SDPA's backward, also at zamba2-2.7b's shared
            attention (B=4 S=2048 32/32 Dh=80). The SSD scan's backward
-           kernels (ssd_scan_bwd.cu: ssd_state_bwd, ssd_chunk_bwd,
+           kernels (ssd_scan_bwd.cu; bf16 at the route's shapes on wgmma:
+           ssd_state_bwd_wgmma, ssd_chunk_bwd_wgmma, ssd_bwd_reduce; f32
+           and other shapes on the scalar ssd_state_bwd, ssd_chunk_bwd,
            ssd_bwd_reduce) against the plain backward (ssd_chunked_bwd in
            f32 from the exact states), after the route's forward wrote
            S_in: the forward's sweep (ragged L, L < Q, initial states with
-           dinit, a nonzero final-state gradient, a partial head group) and
-           the training microbatches of zamba2-2.7b (B=4 L=2048 H=80 P=N=64)
-           and mamba2-130m (B=4 L=2048 H=24 P=64 N=128), f32 within 1e-4 x
-           max(1, max|ref|), bf16 dx, ddt, dA, dB, dC, dinit within
-           SSD_BWD_BF16_REL (1e-2) in relative norm, where two faults
-           planted in the plain backward (dS not carried across the middle
-           chunk; the reverse cumsum of dcums dropped) must land beyond
-           twice the limit; two calls bit-identical; timed beside the plain
-           backward and the bound (no library call computes it)
+           dinit, a nonzero final-state gradient, a partial head group, every
+           Q x P x N of the tensor-core route, the route of each bf16 case
+           printed) and the training microbatches of zamba2-2.7b (B=4 L=2048
+           H=80 P=N=64) and mamba2-130m (B=4 L=2048 H=24 P=64 N=128), both on
+           the tensor-core route, f32 within 1e-4 x max(1, max|ref|), bf16
+           dx, ddt, dA, dB, dC, dinit within SSD_BWD_BF16_REL (1e-2) in
+           relative norm, and within it of the route's rounding written out
+           (ssd_tensor_core_bwd_emulation), where two faults planted in the
+           plain backward (dS not carried across the middle chunk; the
+           reverse cumsum of dcums dropped) must land beyond twice the
+           limit; two calls bit-identical; timed beside the scalar kernels
+           in bf16, the plain backward and the bound (no library call
+           computes it)
   train    training on the card: one train step of llama3-8b-smoke,
            minicpm-2b-smoke, mamba2-130m-smoke and zamba2-2.7b-smoke in f32
            at 1 and 2 microbatches on the card (the prefill kernels, the SSD
@@ -1017,11 +1023,16 @@ def _bwd_rows(ctx, gen, flush) -> dict:
 SSD_BWD_F32_TOL = 1e-4  # x max(1, max|ref|): the forward's f32 tolerance
 # (B, L, H, P, N, chunk, initial state): the forward's sweep and route
 # shapes for the backward: ragged L, L < Q, initial states (dinit), a head
-# count whose last head group of ssd_chunk_bwd is partial (20 heads)
+# count whose last head group of ssd_chunk_bwd is partial (20 heads); then
+# the rest of the tensor-core route's Q x P x N, so that bf16 runs every one
 SSD_BWD_SWEEP = [
     (2, 256, 4, 64, 32, 64, False), (1, 100, 2, 32, 16, 32, True), (2, 128, 8, 16, 64, 128, False),
     (2, 300, 4, 64, 128, 128, True), (2, 50, 4, 32, 32, 64, True), (1, 100, 3, 64, 128, 128, False),
     (1, 7, 3, 16, 16, 128, True), (4, 2048, 20, 64, 64, 128, True), (2, 2048, 24, 32, 128, 64, False),
+    (1, 200, 3, 32, 32, 64, True), (2, 256, 4, 32, 64, 64, False), (1, 192, 5, 64, 64, 64, True),
+    (2, 130, 3, 64, 128, 64, False), (1, 300, 2, 32, 32, 128, True),
+    (2, 256, 3, 32, 64, 128, False), (2, 1100, 20, 32, 128, 128, True),
+    (2, 384, 4, 64, 32, 128, False),
 ]
 # the training microbatches of the train phase's models (B=4 of global batch 8, 2 microbatches)
 SSD_BWD_TRAIN = {"zamba2-2.7b": (4, 2048, 80, 64, 64, 128), "mamba2-130m": (4, 2048, 24, 64, 128, 128)}
@@ -1062,16 +1073,27 @@ def _ssd_bwd_ref(x, dt, A, Bm, Cm, chunk, s0, dy, dfinal, fault=None):
 
 
 def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False) -> dict:
-    """The SSD backward kernels against `_ssd_bwd_ref` at one shape, after
-    the route's forward wrote S_in, with an initial state where asked and a
-    nonzero gradient of the final state: f32 within SSD_BWD_F32_TOL x max(1,
-    max|ref|), bf16 dx, ddt, dA, dB, dC and dinit each within
-    `SSD_BWD_BF16_REL` in relative norm; with ``faults`` (bf16) both
-    planted faults must land beyond twice that limit. Returns the readings
-    and the inputs (for timing)."""
+    """The SSD backward kernels of the route `bwd_route` picks against
+    `_ssd_bwd_ref` at one shape, after the forward's route wrote S_in, with
+    an initial state where asked and a nonzero gradient of the final state:
+    f32 within SSD_BWD_F32_TOL x max(1, max|ref|), bf16 dx, ddt, dA, dB, dC
+    and dinit each within `SSD_BWD_BF16_REL` in relative norm, and within
+    it of the route's own rounding written out in plain PyTorch from the
+    same S_in (`ssd_tensor_core_bwd_emulation` on the tensor-core route,
+    `ssd_chunked_bwd` on bf16 inputs on the scalar one); with ``faults``
+    (bf16) both planted faults must land beyond twice that limit. Returns
+    the readings and the inputs (for timing)."""
     import torch
 
-    from repro_torch.kernels.ssd_scan.ops import SSD_BWD_BF16_REL, route, ssd_bwd, ssd_fwd
+    from repro_torch.kernels.ssd_scan.ops import (
+        SSD_BWD_BF16_REL,
+        TENSOR_CORE,
+        bwd_route,
+        route,
+        ssd_bwd,
+        ssd_fwd,
+    )
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd, ssd_tensor_core_bwd_emulation
 
     what = f"B={b} L={l} H={h} P={p} N={n} Q={chunk}{' init_state' if with_s0 else ''} {dtype}"
     x, dt, A, Bm, Cm = _ssd_inputs(gen, b, l, h, p, n, dtype)
@@ -1080,7 +1102,8 @@ def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False) -> d
     _, _, s_in = ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
     got = ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, dfinal, chunk=chunk, init_state=s0)
     ref = _ssd_bwd_ref(x, dt, A, Bm, Cm, chunk, s0, dy, dfinal)
-    res = dict(route=route(dtype, p, n, chunk), inputs=(x, dt, A, Bm, Cm, s_in, dy, dfinal))
+    res = dict(route=route(dtype, p, n, chunk), bwd_route=bwd_route(dtype, p, n, chunk, l),
+               inputs=(x, dt, A, Bm, Cm, s_in, dy, dfinal))
     if dtype == torch.float32:
         errs = [_max_err(g, r) / max(1.0, float(r.abs().max())) for g, r in zip(got, ref, strict=True)]
         res["f32"] = max(errs)
@@ -1092,6 +1115,13 @@ def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False) -> d
     res["max_abs_err"] = max(_max_err(g, r) for g, r in zip(got, ref, strict=True))
     check(res["bf16"] <= SSD_BWD_BF16_REL, f"ssd_scan_bwd {what}: relative error of "
           f"{SSD_BWD_NAMES}: {rels} beyond {SSD_BWD_BF16_REL}")
+    emulate = (ssd_tensor_core_bwd_emulation if res["bwd_route"] == TENSOR_CORE
+               else ssd_chunked_bwd)
+    emu = emulate(x, dt, A, Bm, Cm, min(chunk, l), s0, s_in, dy, dfinal)
+    res["emu"] = max(_rel_err(g, e) for g, e in zip(got, emu, strict=True))
+    check(res["emu"] <= SSD_BWD_BF16_REL, f"ssd_scan_bwd {what} ({res['bwd_route']}): relative "
+          f"error {res['emu']:.3e} against the route's emulation beyond {SSD_BWD_BF16_REL}")
+    del emu
     if faults:  # each moves every gradient it reaches: the least of those is reported
         for fault, reached in (("dS", (0, 1, 2, 3)), ("cumsum", (1, 2))):
             bad = _ssd_bwd_ref(x, dt, A, Bm, Cm, chunk, s0, dy, dfinal, fault)
@@ -1120,70 +1150,98 @@ def _ssd_bwd_work(b, l, h, p, n, chunk, esize):
 
 def _ssd_bwd_rows(ctx, gen, flush) -> dict:
     """The SSD backward kernels (ssd_scan_bwd.cu) against their plain
-    backward: the sweep in f32 and bf16, then the training microbatches of
-    zamba2-2.7b (the kernel table's row: the train phase's hybrid run) and
-    mamba2-130m with the planted faults, two calls bit-identical, timed (per
-    call after an L2 flush, and device alone) beside the plain backward and
-    the bound. No single PyTorch call computes this function: no library
-    time."""
+    backward: the sweep in f32 and bf16 (the route of each bf16 case
+    printed), then the training microbatches of zamba2-2.7b (the kernel
+    table's row: the train phase's hybrid run) and mamba2-130m with the
+    planted faults, both on the tensor-core route, two calls bit-identical,
+    timed (per call after an L2 flush, and device alone) beside the scalar
+    kernels in bf16 (``kernel="scalar"``), the plain backward and the bound.
+    No single PyTorch call computes this function: no library time."""
     import torch
 
-    from repro_torch.kernels.ssd_scan.ops import SSD_BWD_BF16_REL, ssd_bwd
+    from repro_torch.kernels.ssd_scan.ops import SCALAR, SSD_BWD_BF16_REL, TENSOR_CORE, ssd_bwd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
 
-    worst = {"f32": 0.0, "bf16": 0.0}
+    worst = {"f32": 0.0, "bf16": 0.0, "emu": 0.0}
+    routes: dict = {}
     for case in SSD_BWD_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
             r = _ssd_bwd_check(gen, *case, dtype)
             key = "f32" if dtype == torch.float32 else "bf16"
             worst[key] = max(worst[key], r[key])
+            if dtype == torch.bfloat16:
+                worst["emu"] = max(worst["emu"], r["emu"])
+                routes[r["bwd_route"]] = routes.get(r["bwd_route"], 0) + 1
+                b, l, h, p, n, chunk, with_s0 = case
+                say(f"[kernels] ssd_scan_bwd bf16 B={b} L={l} H={h} P={p} N={n} Q={chunk}"
+                    f"{' init_state' if with_s0 else ''}: route {r['bwd_route']} (forward "
+                    f"{r['route']}), relative error {r['bf16']:.3e}, against the route's "
+                    f"emulation {r['emu']:.3e}")
     say(f"[kernels] ssd_scan_bwd sweep ok ({2 * len(SSD_BWD_SWEEP)} cases: ragged L, L < Q, "
         f"initial states (dinit), a nonzero final-state gradient, a partial head group, every P "
-        f"and N): f32 max abs err / max(1, max|ref|) {worst['f32']:.3e} (limit "
-        f"{SSD_BWD_F32_TOL}), bf16 relative error of dx, ddt, dA, dB, dC, dinit "
-        f"{worst['bf16']:.3e} (limit {SSD_BWD_BF16_REL})")
+        f"and N, every Q x P x N of the tensor-core route): f32 max abs err / max(1, max|ref|) "
+        f"{worst['f32']:.3e} (limit {SSD_BWD_F32_TOL}), bf16 relative error of dx, ddt, dA, dB, "
+        f"dC, dinit {worst['bf16']:.3e} (limit {SSD_BWD_BF16_REL}), against the route's "
+        f"emulation {worst['emu']:.3e}; bf16 calls by route {routes}")
     row = None
     for arch, (b, l, h, p, n, chunk) in SSD_BWD_TRAIN.items():
         f32 = _ssd_bwd_check(gen, b, l, h, p, n, chunk, False, torch.float32)
         del f32["inputs"]
         r = _ssd_bwd_check(gen, b, l, h, p, n, chunk, False, torch.bfloat16, faults=True)
+        check(r["bwd_route"] == TENSOR_CORE, f"ssd_scan_bwd at {arch}: route {r['bwd_route']}, "
+              f"not {TENSOR_CORE}")
         x, dt, A, Bm, Cm, s_in, dy, _ = r.pop("inputs")
 
-        def kernel():  # as training calls it: no initial state, the final state unused
-            return ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, None, chunk=chunk, with_dinit=False)
+        def kernel(route=None):  # as training calls it: no initial state, the final state unused
+            return ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, None, chunk=chunk, with_dinit=False,
+                           kernel=route)
 
         first, again = kernel(), kernel()
         check(all(torch.equal(u, v) for u, v in zip(first[:5], again[:5], strict=True)),
               f"ssd_scan_bwd at {arch}: two calls on the same inputs differ")
         del first, again
 
+        def scalar():
+            return kernel(SCALAR)
+
         def plain():
             ssd_chunked_bwd(x, dt, A, Bm, Cm, chunk, None, s_in, dy, None)
 
+        names = ("ssd_state_bwd", "ssd_chunk_bwd", "ssd_bwd_reduce")
         t = dict(ms=_time_ms(kernel, iters=10, flush=flush),
                  device_ms=_time_ms(kernel, iters=10, flush=flush, device_only=True),
+                 scalar_ms=_time_ms(scalar, iters=5, flush=flush),
+                 scalar_device_ms=_time_ms(scalar, iters=5, flush=flush, device_only=True),
                  plain_ms=_time_ms(plain, iters=3, flush=flush),
-                 kernels=_kernel_ms(kernel, ("ssd_state_bwd", "ssd_chunk_bwd", "ssd_bwd_reduce")),
+                 kernels=_kernel_ms(kernel, names), scalar_kernels=_kernel_ms(scalar, names),
                  **_bound(*_ssd_bwd_work(b, l, h, p, n, chunk, 2), "torch.bfloat16"))
-        k = t["kernels"]
+        k, ks = t["kernels"], t["scalar_kernels"]
         say(f"[kernels] ssd_scan_bwd ({arch}) at B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16 "
-            f"(forward route {r['route']}): kernels {t['ms']:.4f} ms per call (device alone "
-            f"{t['device_ms']:.4f} ms: ssd_state_bwd {k['ssd_state_bwd']:.4f} + ssd_chunk_bwd "
-            f"{k['ssd_chunk_bwd']:.4f} + ssd_bwd_reduce {k['ssd_bwd_reduce']:.4f} ms profiled; two "
-            f"calls bit-identical), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}), library none; f32 max abs err / max(1, max|ref|) "
-            f"{f32['f32']:.3e} (limit {SSD_BWD_F32_TOL}); bf16 relative error {r['bf16']:.3e} "
-            f"(limit {SSD_BWD_BF16_REL}; planted faults: dS not carried across the middle chunk "
-            f"moves dx, ddt, dA, dB by at least {r['fault_dS']:.3e}, the reverse cumsum of dcums "
-            f"dropped moves ddt, dA by at least {r['fault_cumsum']:.3e}) [{ctx['card']}]")
+            f"(forward route {r['route']}): tensor-core route {t['ms']:.4f} ms per call (device "
+            f"alone {t['device_ms']:.4f} ms: ssd_state_bwd_wgmma {k['ssd_state_bwd']:.4f} + "
+            f"ssd_chunk_bwd_wgmma {k['ssd_chunk_bwd']:.4f} + ssd_bwd_reduce "
+            f"{k['ssd_bwd_reduce']:.4f} ms profiled; two calls bit-identical), scalar kernels "
+            f"{t['scalar_ms']:.4f} ms (device alone {t['scalar_device_ms']:.4f} ms: ssd_state_bwd "
+            f"{ks['ssd_state_bwd']:.4f} + ssd_chunk_bwd {ks['ssd_chunk_bwd']:.4f} + ssd_bwd_reduce "
+            f"{ks['ssd_bwd_reduce']:.4f} ms profiled), "
+            f"{t['scalar_device_ms'] / t['device_ms']:.1f}x; plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library none; f32 (scalar) max abs err / "
+            f"max(1, max|ref|) {f32['f32']:.3e} (limit {SSD_BWD_F32_TOL}); bf16 relative error "
+            f"{r['bf16']:.3e} (limit {SSD_BWD_BF16_REL}), against ssd_tensor_core_bwd_emulation "
+            f"{r['emu']:.3e}; planted faults: dS not carried across the middle chunk moves dx, "
+            f"ddt, dA, dB by at least {r['fault_dS']:.3e}, the reverse cumsum of dcums dropped "
+            f"moves ddt, dA by at least {r['fault_cumsum']:.3e} [{ctx['card']}]")
         if row is None:
             row = dict(
                 name="ssd_scan_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                 replaces="src/repro/models/ssm.py:64 (XLA's autodiff of the plain scan "
                          "ssd_chunked; the Pallas kernel has no gradient)",
+                kernel_route=TENSOR_CORE,
                 max_abs_err=r["max_abs_err"], rel_err=r["bf16"], rel_limit=SSD_BWD_BF16_REL,
+                emu_rel_err=r["emu"],
                 ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"], library_ms=None,
+                scalar_ms=t["scalar_ms"], scalar_device_ms=t["scalar_device_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 shape=f"{arch} B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16")
         del x, dt, A, Bm, Cm, s_in, dy

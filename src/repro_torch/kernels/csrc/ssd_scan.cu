@@ -88,6 +88,7 @@
 
 #include "common.cuh"
 #include "sm90.cuh"
+#include "ssd_tc.cuh"
 
 namespace {
 
@@ -346,36 +347,10 @@ int dispatch(int P, int N, const void* x, const void* dt, const void* A, const v
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr int HG_MAX = 8;   // heads per ssd_chunk_out block, at most
 constexpr int XSTAGES = 3;  // x tiles in ssd_chunk_out's ring
 constexpr int PSTAGES = 2;  // chunks in ssd_state_pass's ring
 static_assert(XSTAGES >= 2 && PSTAGES >= 2, "a ring holds the tile in use and the next");
-
-// Inclusive cumsum of a * dt[0 .. Q) by one warp, in base 2: writes
-// out[t] = log2(e) * sum_{k <= t} a dt_k and returns out[Q - 1] to every
-// lane. Lane l owns rows l * Q/32 .. (l + 1) * Q/32 - 1.
-template <int Q>
-__device__ __forceinline__ float warp_cumsum(const float* dt, float a, float* out, int lane) {
-  constexpr int PER = Q / 32;
-  float part[PER], run = 0.f;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) {
-    run += dt[lane * PER + k] * a;
-    part[k] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += t;
-  }
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.f;
-#pragma unroll
-  for (int k = 0; k < PER; ++k) out[lane * PER + k] = (excl + part[k]) * LOG2E;
-  return __shfl_sync(0xffffffffu, incl, 31) * LOG2E;
-}
 
 // ------------------------------------------------------------ ssd_state_pass
 template <int Q, int P, int N>
@@ -448,7 +423,7 @@ ssd_state_pass(const bf16* __restrict__ x, const float* __restrict__ dt,
     const Slot& s = ring[c % PSTAGES];
 
     // weights w_t = dt_t exp(cums_last - cums_t) (0 past L, where dt = 0)
-    const float last = warp_cumsum<Q>(s.dt, a, w, lane);
+    const float last = ssd_tc::warp_cumsum_log2<Q>(s.dt, a, w, lane);
 #pragma unroll
     for (int k = 0; k < Q / 32; ++k) {
       const int t = lane * (Q / 32) + k;
@@ -595,7 +570,8 @@ ssd_chunk_out(const bf16* __restrict__ x, const float* __restrict__ dt,
     sm.dt[g][t] = t < nq && g < nh ? dt[(row0 + t) * H + h0 + g] : 0.f;
   }
   __syncthreads();
-  for (int g = tid / 32; g < nh; g += NT / 32) warp_cumsum<Q>(sm.dt[g], A[h0 + g], sm.c2[g], lane);
+  for (int g = tid / 32; g < nh; g += NT / 32)
+    ssd_tc::warp_cumsum_log2<Q>(sm.dt[g], A[h0 + g], sm.c2[g], lane);
   store_s(0);
   cp_async_wait<XSTAGES - 2>();  // C, B and x of head 0 have landed
   fence_proxy_async();

@@ -33,14 +33,74 @@
 // H = 80, P = N = 64, Q = 128, bf16) that is ~7.5e10 operations against
 // ~0.35 GB: bound by bytes (0.10 ms at 3.35 TB/s), as the forward.
 //
-// Three kernels, one C call, deterministic: no atomics, and every sum runs
-// in a fixed order, so two calls on the same inputs give the same bits.
-// One route for both dtypes, scalar f32 FMAs from f32 shared tiles (bf16
-// inputs are widened as they land, so the bf16 route rounds nothing but its
-// outputs dx, dB and dC): a simple kernel first; tensor cores for the
-// Q x Q and Q x (P | N) products, as in ssd_chunk_out, are ROADMAP B3.
-// 256 threads as a 16 x 16 grid (ty, tx); tiles have odd row strides.
+// Two routes, chosen before any launch by dtype and shape
+// (ssd_scan/ops.py::route at the backward's chunk min(chunk, L), a fixed
+// choice and never a fallback), each three kernels in one C call,
+// deterministic: no atomics, and every sum runs in a fixed order, so two
+// calls on the same inputs give the same bits.
 //
+// bf16 at Q in {64, 128}, P in {32, 64}, N in {32, 64, 128}: tensor cores,
+// as the forward's route (ssd_scan.cu), every product on wgmma with f32
+// accumulators. Its rounding points are ref.py::
+// ssd_tensor_core_bwd_emulation: bf16 operands exp(cums) dy (state pass), M
+// and dG, dS and S (the state products); G, dy.x^T, K, R and every sum that
+// feeds ddt, dcums and dA stay f32.
+//   ssd_state_bwd_wgmma, grid (H, B), one warpgroup per (b, h):
+//   ssd_state_pass run backwards. dS (rows p, 64 per product: at P = 32 the
+//   upper rows are zero) lives in f32 accumulators; per chunk, last to
+//   first, it stores dS to ds_end, scales it by exp(cums_last) and
+//   accumulates (dy exp(cums))^T . C (M = P, N = N, K = Q), the scaled dy
+//   read transposed by ldmatrix.trans and rounded once as the register A
+//   operand, C MN-major. dy, C and dt of the next chunk arrive by cp.async
+//   (a ring of two). Where the chunk kernel splits its passes (N = 128) it
+//   also takes <dS, S> per chunk in f32, parked in the dA partials' scratch.
+//   ssd_chunk_bwd_wgmma, grid (ceil(H / HG), NC, B), Q / 64 warpgroups of 64
+//   rows, HG heads per block in turn, two passes per head:
+//     pass 1, transposed (this warpgroup's rows j): v = B dS^T and z = x dS;
+//     then, per 64-column block of i its rows see (i >= j; the causal
+//     triangle's hidden blocks are skipped), G^T = B C^T and x dy^T, and
+//     M^T = G^T E^T and dG^T = (x dy^T) E^T dt_j rounded to bf16 in
+//     registers as the A operands of dx += M^T dy and dB += dG^T C (dy and C
+//     MN-major): the column-indexed outputs land in registers. u and the
+//     column sums of K come from the f32 registers (a quad's shuffles).
+//     pass 2, as the forward (rows i): w = dy S, qv_i = C_i . w_i and
+//     dC += exp(cums_i) w; per block of j its rows see, G and dy x^T again,
+//     dG rounded as the A operand of dC += dG B, and the row sums of R. The
+//     recomputation (one more 64 x 64 x (N + P) product pair per block, a
+//     third more tensor-core work than one pass) keeps no Q x Q matrix in
+//     shared memory and no barrier between the warpgroups inside a head.
+//   At N <= 64 one step per head runs both passes, dB and dC accumulating in
+//   registers side by side over the block's heads, and a warpgroup does 3
+//   column blocks per head at Q = 128 whichever its rows. At N = 128 the two
+//   accumulators (64 registers each) do not fit beside the passes' working
+//   set: every head's pass 1 runs, then every head's pass 2, x and dy read
+//   twice. x and dy of the next step and its dS and S (f32) arrive by
+//   cp.async while the current step computes; at the step's start the f32
+//   state tiles are rounded into bf16 operand tiles (fused, <dS, S> comes
+//   from them in f32). Then one warp per head: dcums, its reverse cumsum da,
+//   ddt and the head's dA term. dB and dC leave as one f32 partial per block
+//   (each entry one thread's, no read-modify-write), summed over the head
+//   groups in order by ssd_bwd_reduce.
+//   Registers: 180-253 a thread without spills, so one block of 8 warps per
+//   SM; shared memory up to 216 KB (Q = 128, P = 64, N = 128). What holds
+//   the route back (PERF.md): each head's chain of dependent steps (seven
+//   wgmma waits and the element-wise work between them, the exp of every
+//   visible E twice) with no other block on the SM to hide it, and the state
+//   pass's chain over the chunks. Left on the table: TMA tile loads behind
+//   mbarriers with a producer warp (every copy is a thread's cp.async),
+//   ds_end in bf16 (rounded before each product anyway; <dS, S> would then
+//   need the f32 dS where the state pass has it), G held across heads where
+//   registers allow, and pipelining one block's products behind the last's
+//   (tried: G and D of the next block held across the wait spilled).
+//   ngroups = 1: B and C (so G) serve every head of a block. Several groups
+//   (ROADMAP A13) would need the block's heads drawn from one group, B and C
+//   tiles per group, and dB, dC partials and their reduction per group.
+//
+// Everything else, all of f32 included (held to 1e-4, which bf16 tensor
+// cores cannot meet): the first version's scalar kernels, f32 FMAs from f32
+// shared tiles (bf16 inputs are widened as they land, so the scalar route
+// rounds nothing but its outputs dx, dB and dC). 256 threads as a 16 x 16
+// grid (ty, tx); tiles have odd row strides.
 // (a) ssd_state_bwd, grid (H, B): the only sequential part. One block per
 //     (b, h) walks the chunks last to first, carrying dS (P x N, f32) in
 //     registers (entries (ty P/16 + i, tx + 16 c), as the forward's state):
@@ -68,10 +128,12 @@
 //     rounded to x's dtype; dA summed over (b, chunk) in order by the last
 //     block.
 //
-// Rows past L are zero-filled and dt there is 0, so they reach no gradient,
-// and no gradient is written for them.
+// Both routes: rows past L are zero-filled and dt there is 0, so they reach
+// no gradient, and no gradient is written for them.
 
 #include "common.cuh"
+#include "sm90.cuh"
+#include "ssd_tc.cuh"
 
 namespace {
 
@@ -119,13 +181,14 @@ __device__ __forceinline__ void warp_cumsum(const float* dts, float a, float* cu
   for (int k = 0; k < PER; ++k) cum[lane * PER + k] = incl - run + part[k];
 }
 
-// In place, by one warp: v[t] <- sum_{i >= t} v[i] over [0, QMAX).
+// In place, by one warp: v[t] <- sum_{i >= t} v[i] over [0, Q).
+template <int Q>
 __device__ __forceinline__ void warp_reverse_cumsum(float* v, int lane) {
-  constexpr int PER = QMAX / 32;
+  constexpr int PER = Q / 32;
   float part[PER], run = 0.f;
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
-    run += v[QMAX - 1 - (lane * PER + k)];
+    run += v[Q - 1 - (lane * PER + k)];
     part[k] = run;
   }
   float incl = run;
@@ -136,7 +199,7 @@ __device__ __forceinline__ void warp_reverse_cumsum(float* v, int lane) {
   }
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < PER; ++k) v[QMAX - 1 - (lane * PER + k)] = incl - run + part[k];
+  for (int k = 0; k < PER; ++k) v[Q - 1 - (lane * PER + k)] = incl - run + part[k];
 }
 
 // ------------------------------------------------------------- ssd_state_bwd
@@ -595,7 +658,7 @@ ssd_chunk_bwd(const T* __restrict__ x, const float* __restrict__ dt, const float
       for (int w = 0; w < NT / 32; ++w) sd += wsum[w];
       if (lane == 0) dcum[nq - 1] += expf(clast) * sd + s;
       __syncwarp();
-      warp_reverse_cumsum(dcum, lane);
+      warp_reverse_cumsum<QMAX>(dcum, lane);
       __syncwarp();
       float sa = 0.f;
       for (int t = lane; t < nq; t += 32) sa = fmaf(dts[t], dcum[t], sa);
@@ -715,6 +778,740 @@ int dispatch(int P, int N, const void* x, const void* dt, const void* A, const v
   });
 }
 
+// ------------------------------------------------- bf16, tensor cores (wgmma)
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int HG_MAX = 8;   // heads per ssd_chunk_bwd_wgmma block, at most (ops.py's _HG_MAX)
+constexpr int XSTAGES = 2;  // (x, dy) tiles of one head in ssd_chunk_bwd_wgmma's ring
+constexpr int PSTAGES = 2;  // chunks in ssd_state_bwd_wgmma's ring
+static_assert(XSTAGES == 2 && PSTAGES >= 2, "a ring holds the tile in use and the next");
+// At N <= 64 one step of ssd_chunk_bwd_wgmma per head runs both passes over
+// the head's Q x Q matrices, dB and dC accumulating in registers side by
+// side; at N = 128 (64 more registers each) every head's first pass runs,
+// then every head's second, x and dy read twice.
+template <int N>
+constexpr bool FUSED_PASSES = N <= 64;
+
+// Sum over the 4 lanes of a quad (the lanes that share an accumulator row),
+// in a fixed order: every lane of the quad gets the same bits.
+__device__ __forceinline__ float sum4(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The bf16 pair at (row, col) and (row, col + 1) of a tile of D columns in
+// the core-matrix layout (sm90.cuh), col even, as f32.
+template <int D>
+__device__ __forceinline__ float2 pair_at(const bf16* tile, int row, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      tile + ((row / 8) * (D / 8) + col / 8) * 64 + (row % 8) * 8 + col % 8));
+}
+
+
+// ------------------------------------------------------- ssd_state_bwd_wgmma
+template <int Q, int P, int N>
+struct StateBwdSlot {  // one chunk of ssd_state_bwd_wgmma's ring
+  bf16 dy[Q * P];      // core-matrix layout, rows t
+  bf16 c[Q * N];       // core-matrix layout, rows t
+  float dt[Q];
+};
+
+template <int Q, int P, int N>
+constexpr size_t state_bwd_smem() {
+  return PSTAGES * sizeof(StateBwdSlot<Q, P, N>) + (4 * Q + 2 * 4) * sizeof(float);
+}
+
+template <int Q, int P, int N>
+__global__ void __launch_bounds__(128)
+ssd_state_bwd_wgmma(const bf16* __restrict__ dy, const float* __restrict__ dt,
+                    const float* __restrict__ A, const bf16* __restrict__ Cm,
+                    const float* __restrict__ dfinal, const float* __restrict__ s_in,
+                    float* __restrict__ ds_end, float* __restrict__ dinit,
+                    float* __restrict__ dsdot, int L, int H) {
+  using Slot = StateBwdSlot<Q, P, N>;
+  constexpr uint32_t GROUP_N = N / 8 * 128;  // bytes between 8-row groups of a C tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Slot* ring = reinterpret_cast<Slot*>(smem_raw);
+  float* wts = reinterpret_cast<float*>(smem_raw + PSTAGES * sizeof(Slot));  // 4 x Q
+  float* red = wts + 4 * Q;  // 2 x 4: <dS, S> per warp, chunks alternating
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = warp_uniform(tid / 32), lane = tid % 32;
+  const int nc = (L + Q - 1) / Q;
+  const float a = A[h];
+  // Accumulator rows p0 and p0 + 8 (d[4 i + e], e / 2 picks the row), column
+  // 8 i + 2 (lane % 4) + e % 2. At P = 32 warps 2 and 3 hold zero rows.
+  const int p0 = 16 * warp + lane / 4;
+  const bool rows_ok = 16 * warp < P;  // uniform over the warp
+  const int64_t st_off = ((int64_t)b * H + h) * P * N;
+
+  auto issue = [&](int k) {  // copies of chunk nc - 1 - k into its slot, as one commit group
+    if (k < nc) {
+      const int l0 = (nc - 1 - k) * Q, nq = min(Q, L - l0);
+      Slot& s = ring[k % PSTAGES];
+      load_tile<P, Q, 128>(s.dy, nq, [&](int r) {
+        return dy + (((int64_t)b * L + l0 + r) * H + h) * P;
+      });
+      load_tile<N, Q, 128>(s.c, nq, [&](int r) { return Cm + ((int64_t)b * L + l0 + r) * N; });
+      for (int t = tid; t < Q; t += 128) {
+        const bool ok = t < nq;
+        cp_async_4(&s.dt[t], dt + ((int64_t)b * L + l0 + (ok ? t : 0)) * H + h, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + 8 * (e / 2), n = 8 * i + 2 * (lane % 4) + e % 2;
+      acc[4 * i + e] = dfinal != nullptr && rows_ok ? dfinal[st_off + p * N + n] : 0.f;
+    }
+
+#pragma unroll
+  for (int k = 0; k < PSTAGES - 1; ++k) issue(k);
+  float* w = wts + warp * Q;  // this warp's copy of the chunk's weights
+  // <dS, S> of chunk c, summed over the 4 warps in order, to dsdot, where
+  // ssd_chunk_bwd_wgmma splits its passes (it reads dS and S as f32 side by
+  // side only where it fuses them)
+  constexpr bool DOT = !FUSED_PASSES<N>;
+  auto put_dot = [&](int k) {
+    if (DOT && tid == 0) {
+      const float* r = red + 4 * (k % 2);
+      dsdot[((int64_t)b * nc + nc - 1 - k) * H + h] = ((r[0] + r[1]) + r[2]) + r[3];
+    }
+  };
+  float2 sv[DOT ? N / 8 : 1][2];  // S at a chunk's start, at this thread's entries of dS
+  auto load_sv = [&](int c) {  // in flight while the chunk before computes
+    if constexpr (DOT)
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          sv[i][r] = rows_ok ? *reinterpret_cast<const float2*>(
+                                   s_in + (((int64_t)b * nc + c) * H + h) * P * N +
+                                   (p0 + 8 * r) * N + 8 * i + 2 * (lane % 4))
+                             : make_float2(0.f, 0.f);
+  };
+  load_sv(nc - 1);
+  for (int k = 0; k < nc; ++k) {
+    const int c = nc - 1 - k, nq = min(Q, L - c * Q);
+    const int64_t off = (((int64_t)b * nc + c) * H + h) * P * N;
+    cp_async_wait<PSTAGES - 2>();  // this thread's copies of chunk c have landed
+    fence_proxy_async();
+    __syncthreads();  // everyone's have; every read of chunk c + 1's slot is done
+    issue(k + PSTAGES - 1);
+    if (k > 0) put_dot(k - 1);
+    const Slot& s = ring[k % PSTAGES];
+
+    // weights w_t = exp(cums_t), 0 past L
+    const float last = ssd_tc::warp_cumsum_log2<Q>(s.dt, a, w, lane);
+#pragma unroll
+    for (int kk = 0; kk < Q / 32; ++kk) {
+      const int t = lane * (Q / 32) + kk;
+      w[t] = t < nq ? fast_exp2(w[t]) : 0.f;
+    }
+    __syncwarp();
+
+    // dS at the chunk's end and its <dS, S> (f32, in a fixed order), then
+    // its decay over the chunk
+    if constexpr (DOT) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          dot = fmaf(acc[4 * i + 2 * r], sv[i][r].x, dot);
+          dot = fmaf(acc[4 * i + 2 * r + 1], sv[i][r].y, dot);
+        }
+      if (c > 0) load_sv(c - 1);
+      dot = sum32(dot);
+      if (lane == 0) red[4 * (k % 2) + warp] = dot;
+    }
+    if (rows_ok) {
+      float* so = ds_end + off;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(so + (p0 + 8 * r) * N + 8 * i + 2 * (lane % 4)) =
+              make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+    }
+    const float decay = fast_exp2(last);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] *= decay;
+
+    // A = (dy w)^T in bf16: ldmatrix.trans of the dy tile (rows t, columns p),
+    // each pair of t scaled by its weights
+    uint32_t ya[Q / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < Q / 16; ++kk) {
+      if (rows_ok) {
+        const int j = lane / 8;
+        const int t = 16 * kk + 8 * (j / 2) + lane % 8, pc = 16 * warp + 8 * (j % 2);
+        ldmatrix_x4_trans(ya[kk], s.dy + ((t / 8) * (P / 8) + pc / 8) * 64 + (t % 8) * 8);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 wt =
+              *reinterpret_cast<const float2*>(w + 16 * kk + 8 * (r / 2) + 2 * (lane % 4));
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ya[kk][r]));
+          ya[kk][r] = pack_bf16x2(v.x * wt.x, v.y * wt.y);
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ya[kk][r] = 0u;
+      }
+    }
+
+    // dS += A . C_c (C_c MN-major: rows t, columns n)
+    const uint64_t dc = wgmma_desc(s.c, GROUP_N, 128);
+    fence_regs(acc);
+    fence_regs(ya);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Q / 16; ++kk) wgmma_rs(acc, ya[kk], dc + kk * 2 * GROUP_N / 16, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ya);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  put_dot(nc - 1);
+
+  if (dinit != nullptr && rows_ok) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(dinit + st_off + (p0 + 8 * r) * N + 8 * i + 2 * (lane % 4)) =
+            make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+  }
+}
+
+// ------------------------------------------------------- ssd_chunk_bwd_wgmma
+
+template <int Q, int P, int N>
+struct ChunkBwdSmem {
+  static constexpr int NSF = FUSED_PASSES<N> ? 2 : 1;  // state tiles a step stages
+  bf16 c[Q * N];              // C_c, core-matrix layout, rows i
+  bf16 b[Q * N];              // B_c, rows j
+  bf16 x[XSTAGES][Q * P];     // x of one head per slot, rows j
+  bf16 dy[XSTAGES][Q * P];    // dy of the same head, rows i
+  bf16 ds[P * N];             // dS at the chunk's end of the step's head, bf16, rows p
+  bf16 s[P * N];              // S at the chunk's start, the same
+  float sf[NSF][P * N];       // the next step's state tiles as they land, f32, row-major
+  float c2[HG_MAX][Q];        // log2(e) cums per head
+  float dt[HG_MAX][Q];        // dt per head (0 past L)
+  float colk[HG_MAX][Q];      // sum_i K_ij
+  float uu[HG_MAX][Q];        // u_j = x_j . dS B_j
+  float rowr[HG_MAX][Q];      // sum_j R_ij, then dcums, then da
+  float qv[HG_MAX][Q];        // C_i . S^T dy_i
+  float dot[HG_MAX][Q / 16];  // <dS, S> per warp (fused passes)
+};
+
+template <int Q, int P, int N>
+__global__ void __launch_bounds__(2 * Q, 1)
+ssd_chunk_bwd_wgmma(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const bf16* __restrict__ Bm,
+                    const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                    const float* __restrict__ s_in, const float* __restrict__ ds_end,
+                    bf16* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dbp,
+                    float* __restrict__ dcp, float* __restrict__ dap, int L, int H, int hg) {
+  constexpr int WGS = Q / 64, NT = 128 * WGS, NW = NT / 32;
+  constexpr bool FUSED = FUSED_PASSES<N>;
+  constexpr uint32_t GROUP_N = N / 8 * 128;  // bytes between 8-row groups, C/B/state tiles
+  constexpr uint32_t GROUP_P = P / 8 * 128;  // ... of an x or dy tile
+  constexpr int SCH = P * N / 8;             // 16-byte chunks of a bf16 state tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ChunkBwdSmem<Q, P, N>& sm = *reinterpret_cast<ChunkBwdSmem<Q, P, N>*>(smem_raw);
+
+  const int h0 = blockIdx.x * hg, c = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.y;
+  const int nh = warp_uniform(min(hg, H - h0));  // heads of this block
+  const int nsteps = FUSED ? nh : 2 * nh;
+  const int l0 = c * Q, nq = min(Q, L - l0);
+  const int tid = threadIdx.x, lane = tid % 32, gw = warp_uniform(tid / 32);
+  const int wg = warp_uniform(tid / 128), warp = warp_uniform((tid % 128) / 32);
+  const int64_t row0 = (int64_t)b * L + l0;  // the chunk's first row of the sequence
+  const int r0 = 64 * wg + 16 * warp + lane / 4;  // this thread's rows r0 and r0 + 8
+  const int64_t part = (((int64_t)b * nc + c) * gridDim.x + blockIdx.x) * Q * N;
+
+  load_tile<N, Q, NT>(sm.c, nq, [&](int r) { return Cm + (row0 + r) * N; });
+  load_tile<N, Q, NT>(sm.b, nq, [&](int r) { return Bm + (row0 + r) * N; });
+  // Step s takes head s % nh: x and dy into slot s % XSTAGES and its state
+  // tiles into sf (fused: dS, S; else dS in the first pass, S in the
+  // second), as one commit group.
+  auto issue = [&](int s) {
+    if (s < nsteps) {
+      const int g = s < nh ? s : s - nh;
+      load_tile<P, Q, NT>(sm.x[s % XSTAGES], nq, [&](int r) {
+        return x + ((row0 + r) * H + h0 + g) * P;
+      });
+      load_tile<P, Q, NT>(sm.dy[s % XSTAGES], nq, [&](int r) {
+        return dy + ((row0 + r) * H + h0 + g) * P;
+      });
+      const int64_t st = (((int64_t)b * nc + c) * H + h0 + g) * P * N;
+#pragma unroll
+      for (int k = 0; k < ChunkBwdSmem<Q, P, N>::NSF; ++k) {
+        const float* src = (FUSED ? k == 0 : s < nh) ? ds_end + st : s_in + st;
+        for (int i = tid; i < P * N / 4; i += NT) cp_async_16(sm.sf[k] + 4 * i, src + 4 * i, true);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);  // C and B travel with the first step
+
+  // dt of the group's heads (coalesced over heads), then one warp per head
+  // takes its cumsum
+  for (int i = tid; i < Q * HG_MAX; i += NT) {
+    const int t = i / HG_MAX, g = i % HG_MAX;
+    sm.dt[g][t] = t < nq && g < nh ? dt[(row0 + t) * H + h0 + g] : 0.f;
+  }
+  __syncthreads();
+  for (int g = gw; g < nh; g += NW)
+    ssd_tc::warp_cumsum_log2<Q>(sm.dt[g], A[h0 + g], sm.c2[g], lane);
+
+  // The start of step s: x and dy of its head landed and its state tiles in
+  // bf16 in sm.ds and sm.s; then the copies of step s + 1 start.
+  // Fused, also this head's <dS, S> per warp in f32 from both f32 tiles.
+  auto begin_step = [&](int s) {
+    cp_async_wait<0>();  // this thread's copies of step s have landed
+    __syncthreads();     // everyone's; every read of the last step's tiles is done
+#pragma unroll
+    for (int k = 0; k < ChunkBwdSmem<Q, P, N>::NSF; ++k) {
+      bf16* dst = (FUSED ? k == 0 : s < nh) ? sm.ds : sm.s;
+      for (int i = tid; i < SCH; i += NT) {
+        const int r = (i / (8 * (N / 8))) * 8 + i % 8, col = ((i / 8) % (N / 8)) * 8;
+        const float4 u0 = *reinterpret_cast<const float4*>(sm.sf[k] + r * N + col);
+        const float4 u1 = *reinterpret_cast<const float4*>(sm.sf[k] + r * N + col + 4);
+        reinterpret_cast<uint4*>(dst)[i] =
+            make_uint4(pack_bf16x2(u0.x, u0.y), pack_bf16x2(u0.z, u0.w),
+                       pack_bf16x2(u1.x, u1.y), pack_bf16x2(u1.z, u1.w));
+      }
+    }
+    if constexpr (FUSED) {
+      float dotp = 0.f;
+      for (int i = tid; i < P * N; i += NT) dotp = fmaf(sm.sf[0][i], sm.sf[1][i], dotp);
+      dotp = sum32(dotp);
+      if (lane == 0) sm.dot[s][gw] = dotp;
+    }
+    fence_proxy_async();  // the async proxy (wgmma) reads what this thread wrote
+    __syncthreads();      // sm.ds and sm.s are whole, sm.sf free
+    issue(s + 1);
+  };
+
+  const uint64_t d_c = wgmma_desc(sm.c, 128, GROUP_N);    // C K-major (rows i)
+  const uint64_t d_b = wgmma_desc(sm.b, 128, GROUP_N);    // B K-major (rows j)
+  const uint64_t d_ct = wgmma_desc(sm.c, GROUP_N, 128);   // C MN-major (rows i along K)
+  const uint64_t d_bt = wgmma_desc(sm.b, GROUP_N, 128);   // B MN-major (rows j along K)
+  const uint64_t d_ds = wgmma_desc(sm.ds, 128, GROUP_N);  // dS K-major (rows p along N)
+  const uint64_t d_dst = wgmma_desc(sm.ds, GROUP_N, 128); // dS MN-major (rows p along K)
+  const uint64_t d_sst = wgmma_desc(sm.s, GROUP_N, 128);  // S MN-major (rows p along K)
+  const uint64_t blk_n = 8 * GROUP_N / 16, blk_p = 8 * GROUP_P / 16;  // 64 rows of a tile
+  const uint64_t kst_n = 2 * GROUP_N / 16, kst_p = 2 * GROUP_P / 16;  // 16 rows, MN-major
+
+  // ---- the first pass over head g, transposed: this warpgroup's rows j;
+  // dx, u, the column sums of K, and dB summed into db
+  auto pass1 = [&](int g, int slot, float (&db)[N / 2]) {
+    const float* c2 = sm.c2[g];
+    const float* dtg = sm.dt[g];
+    const bf16* xs = sm.x[slot];
+    const uint64_t d_x = wgmma_desc(xs, 128, GROUP_P);
+    const uint64_t d_y = wgmma_desc(sm.dy[slot], 128, GROUP_P);
+    const uint64_t d_yt = wgmma_desc(sm.dy[slot], GROUP_P, 128);
+    const float cj[2] = {c2[r0], c2[r0 + 8]}, dtj[2] = {dtg[r0], dtg[r0 + 8]};
+    const float clast = c2[Q - 1];
+
+    // v = B dS^T (rows j, columns p), z = x dS (rows j, columns n)
+    float v[P / 2], z[N / 2];
+    fence_regs(v);
+    fence_regs(z);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss(v, d_b + wg * blk_n + 16 * kk, d_ds + 16 * kk, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk)
+      wgmma_ss_tb(z, d_x + wg * blk_p + 16 * kk, d_dst + kk * kst_n, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(v);
+    fence_regs(z);
+
+    // u_j = x_j . v_j; v_j scaled by exp(cums_last - cums_j) (dx's state
+    // term); dB_j += exp(cums_last - cums_j) dt_j z_j
+    const float eo[2] = {fast_exp2(clast - cj[0]), fast_exp2(clast - cj[1])};
+    float up[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < P / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 xv = pair_at<P>(xs, r0 + 8 * r, 8 * i + 2 * (lane % 4));
+        up[r] = fmaf(xv.x, v[4 * i + 2 * r], up[r]);
+        up[r] = fmaf(xv.y, v[4 * i + 2 * r + 1], up[r]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      up[r] = sum4(up[r]);
+      if (lane % 4 == 0) sm.uu[g][r0 + 8 * r] = up[r];
+    }
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) v[i] *= eo[(i % 4) / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) db[i] = fmaf(eo[(i % 4) / 2] * dtj[(i % 4) / 2], z[i], db[i]);
+
+    // the column blocks of i this warpgroup's rows see (i >= j): G^T = B C^T
+    // and (dy.x^T)^T = x dy^T, then M^T = G^T E^T and dG^T = (x dy^T) E^T
+    // dt_j in bf16 as A operands of dx += M^T dy and dB += dG^T C; the row
+    // sums of K^T = M^T (x dy^T) in f32
+    float colp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int cb = 0; cb < WGS; ++cb) {
+      if (cb >= wg) {
+        float G[32], D[32];
+        fence_regs(G);
+        fence_regs(D);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+          wgmma_ss(G, d_b + wg * blk_n + 16 * kk, d_c + cb * blk_n + 16 * kk, kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < P / 16; ++kk)
+          wgmma_ss(D, d_x + wg * blk_p + 16 * kk, d_y + cb * blk_p + 16 * kk, kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(G);
+        fence_regs(D);
+
+        // Of the block on the diagonal (cb = wg), this warp's 16 rows see
+        // the 8-column groups ii > 2 warp + 1, part of 2 warp and 2 warp + 1
+        // (masked by a select) and none before them (zero, no exp).
+        uint32_t ma[4][4], ga[4][4];
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii) {
+          const int col = 64 * cb + 8 * ii + 2 * (lane % 4);
+          const int vis = cb > wg ? 2 : ii - 2 * warp;  // < 0: none, 0 or 1: masked, 2: all
+          float mv[4] = {0.f, 0.f, 0.f, 0.f}, gv[4] = {0.f, 0.f, 0.f, 0.f};
+          if (vis >= 0) {  // uniform over the warp
+            const float2 ci = *reinterpret_cast<const float2*>(c2 + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool seen = vis > 1 || col + e % 2 >= r0 + 8 * (e / 2);
+              const float ev = seen ? fast_exp2((e % 2 ? ci.y : ci.x) - cj[e / 2]) : 0.f;
+              mv[e] = G[4 * ii + e] * ev;
+              gv[e] = D[4 * ii + e] * ev * dtj[e / 2];
+              colp[e / 2] = fmaf(mv[e], D[4 * ii + e], colp[e / 2]);
+            }
+          }
+          ma[ii / 2][2 * (ii % 2)] = pack_bf16x2(mv[0], mv[1]);
+          ma[ii / 2][2 * (ii % 2) + 1] = pack_bf16x2(mv[2], mv[3]);
+          ga[ii / 2][2 * (ii % 2)] = pack_bf16x2(gv[0], gv[1]);
+          ga[ii / 2][2 * (ii % 2) + 1] = pack_bf16x2(gv[2], gv[3]);
+        }
+        fence_regs(v);
+        fence_regs(db);
+        fence_regs(ma);
+        fence_regs(ga);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs(v, ma[kk], d_yt + (4 * cb + kk) * kst_p, 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs(db, ga[kk], d_ct + (4 * cb + kk) * kst_n, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(v);
+        fence_regs(db);
+        fence_regs(ma);
+        fence_regs(ga);
+      }
+    }
+
+    // dx_j = dt_j (M^T dy + exp(cums_last - cums_j) dS B_j)_j; sum_i K_ij
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      colp[r] = sum4(colp[r]);
+      if (lane % 4 == 0) sm.colk[g][row] = colp[r];
+      if (row < nq) {
+        bf16* dst = dx + ((row0 + row) * H + h0 + g) * P + 2 * (lane % 4);
+#pragma unroll
+        for (int i = 0; i < P / 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+              __floats2bfloat162_rn(v[4 * i + 2 * r] * dtj[r], v[4 * i + 2 * r + 1] * dtj[r]);
+      }
+    }
+  };
+
+  // ---- the second pass over head g, as the forward: this warpgroup's rows
+  // i; qv and the row sums of R, and dC summed into dcc
+  auto pass2 = [&](int g, int slot, float (&dcc)[N / 2]) {
+    const float* c2 = sm.c2[g];
+    const float* dtg = sm.dt[g];
+    const bf16* xs = sm.x[slot];
+    const uint64_t d_x = wgmma_desc(xs, 128, GROUP_P);
+    const uint64_t d_y = wgmma_desc(sm.dy[slot], 128, GROUP_P);
+    const float ci[2] = {c2[r0], c2[r0 + 8]};
+
+    // w = dy S (rows i, columns n); qv_i = C_i . w_i; dC_i += exp(cums_i) w_i
+    float w[N / 2];
+    fence_regs(w);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk)
+      wgmma_ss_tb(w, d_y + wg * blk_p + 16 * kk, d_sst + kk * kst_n, kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(w);
+    const float ei[2] = {fast_exp2(ci[0]), fast_exp2(ci[1])};
+    float qp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 cv = pair_at<N>(sm.c, r0 + 8 * r, 8 * i + 2 * (lane % 4));
+        qp[r] = fmaf(cv.x, w[4 * i + 2 * r], qp[r]);
+        qp[r] = fmaf(cv.y, w[4 * i + 2 * r + 1], qp[r]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      qp[r] = sum4(qp[r]);
+      if (lane % 4 == 0) sm.qv[g][r0 + 8 * r] = qp[r];
+    }
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) dcc[i] = fmaf(ei[(i % 4) / 2], w[i], dcc[i]);
+
+    // the column blocks of j this warpgroup's rows see (j <= i): G = C B^T
+    // and dy x^T, then dG = (dy x^T) E dt_j in bf16 as the A operand of
+    // dC += dG B; the row sums of R = G E (dy x^T) dt_j in f32
+    float rp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int cb = 0; cb < WGS; ++cb) {
+      if (cb <= wg) {
+        float G[32], D[32];
+        fence_regs(G);
+        fence_regs(D);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk)
+          wgmma_ss(G, d_c + wg * blk_n + 16 * kk, d_b + cb * blk_n + 16 * kk, kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < P / 16; ++kk)
+          wgmma_ss(D, d_y + wg * blk_p + 16 * kk, d_x + cb * blk_p + 16 * kk, kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(G);
+        fence_regs(D);
+
+        // Of the block on the diagonal (cb = wg), this warp's 16 rows see
+        // the 8-column groups ii < 2 warp, part of 2 warp and 2 warp + 1
+        // (masked by a select) and none past them (zero, no exp).
+        uint32_t ga[4][4];
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii) {
+          const int col = 64 * cb + 8 * ii + 2 * (lane % 4);
+          const int vis = cb < wg ? -1 : ii - 2 * warp;  // < 0: all, 0 or 1: masked, > 1: none
+          float gv[4] = {0.f, 0.f, 0.f, 0.f};
+          if (vis <= 1) {  // uniform over the warp
+            const float2 cj = *reinterpret_cast<const float2*>(c2 + col);
+            const float2 dj = *reinterpret_cast<const float2*>(dtg + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool seen = vis < 0 || col + e % 2 <= r0 + 8 * (e / 2);
+              const float ev = seen ? fast_exp2(ci[e / 2] - (e % 2 ? cj.y : cj.x)) : 0.f;
+              const float de = D[4 * ii + e] * ev, djv = e % 2 ? dj.y : dj.x;
+              gv[e] = de * djv;
+              rp[e / 2] = fmaf(G[4 * ii + e] * de, djv, rp[e / 2]);
+            }
+          }
+          ga[ii / 2][2 * (ii % 2)] = pack_bf16x2(gv[0], gv[1]);
+          ga[ii / 2][2 * (ii % 2) + 1] = pack_bf16x2(gv[2], gv[3]);
+        }
+        fence_regs(dcc);
+        fence_regs(ga);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs(dcc, ga[kk], d_bt + (4 * cb + kk) * kst_n, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dcc);
+        fence_regs(ga);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rp[r] = sum4(rp[r]);
+      if (lane % 4 == 0) sm.rowr[g][r0 + 8 * r] = rp[r];
+    }
+  };
+
+  // one f32 partial per block of dB or dC over the group's heads, each entry
+  // this thread's own
+  auto put_part = [&](float* dst0, const float (&acc)[N / 2]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < nq) {
+        float* dst = dst0 + part + (int64_t)row * N + 2 * (lane % 4);
+#pragma unroll
+        for (int i = 0; i < N / 8; ++i)
+          *reinterpret_cast<float2*>(dst + 8 * i) =
+              make_float2(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+      }
+    }
+  };
+  if constexpr (FUSED) {
+    float db[N / 2] = {}, dcc[N / 2] = {};
+    for (int g = 0; g < nh; ++g) {
+      begin_step(g);
+      pass1(g, g % XSTAGES, db);
+      pass2(g, g % XSTAGES, dcc);
+    }
+    put_part(dbp, db);
+    put_part(dcp, dcc);
+  } else {
+    {
+      float db[N / 2] = {};
+      for (int g = 0; g < nh; ++g) {
+        begin_step(g);
+        pass1(g, g % XSTAGES, db);
+      }
+      put_part(dbp, db);
+    }
+    float dcc[N / 2] = {};
+    for (int g = 0; g < nh; ++g) {
+      begin_step(nh + g);
+      pass2(g, (nh + g) % XSTAGES, dcc);
+    }
+    put_part(dcp, dcc);
+  }
+  cp_async_wait<0>();  // no copy outlives the block (the ring's last groups are empty)
+  __syncthreads();     // every head's sums are in shared memory
+
+  // ---- dcums, its reverse cumsum da, ddt and dA of each head, one warp per head
+  for (int g = gw; g < nh; g += NW) {
+    float* dcum = sm.rowr[g];
+    const float* c2 = sm.c2[g];
+    const float* dtg = sm.dt[g];
+    const float clast = c2[Q - 1];
+    float su = 0.f;
+    for (int t = lane; t < Q; t += 32) {
+      float v = 0.f;
+      if (t < nq) {
+        const float eo = fast_exp2(clast - c2[t]);
+        v = dcum[t] - dtg[t] * sm.colk[g][t] + fast_exp2(c2[t]) * sm.qv[g][t] -
+            eo * dtg[t] * sm.uu[g][t];
+        su = fmaf(eo * dtg[t], sm.uu[g][t], su);
+      }
+      dcum[t] = v;
+    }
+    su = sum32(su);
+    // <dS, S>: fused, from the warps' partials; else the state pass's, in
+    // dap until replaced below
+    float* da_part = dap + ((int64_t)b * nc + c) * H + h0 + g;
+    float sd = 0.f;
+    if constexpr (FUSED) {
+#pragma unroll
+      for (int w = 0; w < NW; ++w) sd += sm.dot[g][w];
+    } else {
+      sd = *da_part;
+    }
+    __syncwarp();
+    if (lane == 0) dcum[nq - 1] += fast_exp2(clast) * sd + su;
+    __syncwarp();
+    warp_reverse_cumsum<Q>(dcum, lane);
+    __syncwarp();
+    const float a = A[h0 + g];
+    float sa = 0.f;
+    for (int t = lane; t < nq; t += 32) {
+      sa = fmaf(dtg[t], dcum[t], sa);
+      ddt[(row0 + t) * H + h0 + g] =
+          sm.colk[g][t] + fast_exp2(clast - c2[t]) * sm.uu[g][t] + a * dcum[t];
+    }
+    sa = sum32(sa);
+    if (lane == 0) *da_part = sa;
+  }
+}
+
+template <int Q, int P, int N>
+int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
+           const void* dy, const void* s_in, const void* dfinal, void* dx, void* ddt, void* dA,
+           void* dB, void* dC, void* dinit, void* ds_end, void* dbp, void* dcp, void* dap, int B,
+           int L, int H, int hg, cudaStream_t stream) {
+  constexpr size_t sm_state = state_bwd_smem<Q, P, N>(), sm_chunk = sizeof(ChunkBwdSmem<Q, P, N>);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(ssd_state_bwd_wgmma<Q, P, N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)sm_state);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_chunk_bwd_wgmma<Q, P, N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_chunk);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int nc = (L + Q - 1) / Q, ng = (H + hg - 1) / hg;
+  ssd_state_bwd_wgmma<Q, P, N><<<dim3(H, B), 128, sm_state, stream>>>(
+      static_cast<const bf16*>(dy), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const bf16*>(Cm), static_cast<const float*>(dfinal),
+      static_cast<const float*>(s_in), static_cast<float*>(ds_end), static_cast<float*>(dinit),
+      static_cast<float*>(dap), L, H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_chunk_bwd_wgmma<Q, P, N><<<dim3(ng, nc, B), 2 * Q, sm_chunk, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), static_cast<const bf16*>(dy),
+      static_cast<const float*>(s_in), static_cast<const float*>(ds_end), static_cast<bf16*>(dx),
+      static_cast<float*>(ddt), static_cast<float*>(dbp), static_cast<float*>(dcp),
+      static_cast<float*>(dap), L, H, hg);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int64_t total = (int64_t)B * L * N;
+  ssd_bwd_reduce<bf16><<<(unsigned)((total + NT - 1) / NT + 1), NT, 0, stream>>>(
+      static_cast<const float*>(dbp), static_cast<const float*>(dcp),
+      static_cast<const float*>(dap), static_cast<bf16*>(dB), static_cast<bf16*>(dC),
+      static_cast<float*>(dA), B, L, H, N, Q, ng);
+  return (int)cudaGetLastError();
+}
+
+// Calls f(std::integral_constant<int, V>{}) for V in the route's state dims.
+template <class F>
+int with_tc_n(int N, F&& f) {
+  switch (N) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(int P, int N, int Q, const void* x, const void* dt, const void* A, const void* Bm,
+             const void* Cm, const void* dy, const void* s_in, const void* dfinal, void* dx,
+             void* ddt, void* dA, void* dB, void* dC, void* dinit, void* ds_end, void* dbp,
+             void* dcp, void* dap, int B, int L, int H, int hg, cudaStream_t st) {
+  if (hg > HG_MAX) return (int)cudaErrorInvalidValue;
+  auto go = [&](auto q, auto p) {
+    return with_tc_n(N, [&](auto n) {
+      return launch<decltype(q)::value, decltype(p)::value, decltype(n)::value>(
+          x, dt, A, Bm, Cm, dy, s_in, dfinal, dx, ddt, dA, dB, dC, dinit, ds_end, dbp, dcp, dap,
+          B, L, H, hg, st);
+    });
+  };
+  using I32 = std::integral_constant<int, 32>;
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  if (Q == 64 && P == 32) return go(I64{}, I32{});
+  if (Q == 64 && P == 64) return go(I64{}, I64{});
+  if (Q == 128 && P == 32) return go(I128{}, I32{});
+  if (Q == 128 && P == 64) return go(I128{}, I64{});
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x, dy, dx (B, L, H, P), dt, ddt (B, L, H) f32, A, dA (H,) f32, Bm, Cm, dB,
@@ -724,16 +1521,26 @@ int dispatch(int P, int N, const void* x, const void* dt, const void* A, const v
 // (0 = float32, 1 = bfloat16); all contiguous, on the stream's device;
 // chunks of 1 <= Q <= 128 rows, NC = ceil(L / Q). Scratch, f32: ds_end
 // (B, NC, H, P, N), dbp and dcp (B, NC, ceil(H / hg), Q, N), dap (B, NC, H).
-// Launches ssd_state_bwd, ssd_chunk_bwd and ssd_bwd_reduce; returns the
-// first failed launch's cudaError_t, else 0.
+// route 1 is the tensor-core route, which takes bf16 with Q in {64, 128},
+// P in {32, 64}, N in {32, 64, 128} and hg <= 8 (ssd_scan/ops.py::route)
+// and launches ssd_state_bwd_wgmma, ssd_chunk_bwd_wgmma and ssd_bwd_reduce;
+// route 0 the scalar kernels ssd_state_bwd, ssd_chunk_bwd and
+// ssd_bwd_reduce, in either dtype. Returns the first failed launch's
+// cudaError_t, else 0.
 extern "C" int repro_ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* Bm,
                                   const void* Cm, const void* dy, const void* s_in,
                                   const void* dfinal, void* dx, void* ddt, void* dA, void* dB,
                                   void* dC, void* dinit, void* ds_end, void* dbp, void* dcp,
                                   void* dap, int B, int L, int H, int P, int N, int Q, int hg,
-                                  int dtype, void* stream) {
+                                  int dtype, int route, void* stream) {
   if (Q < 1 || Q > QMAX || L < 1 || hg < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return tc::dispatch(P, N, Q, x, dt, A, Bm, Cm, dy, s_in, dfinal, dx, ddt, dA, dB, dC, dinit,
+                        ds_end, dbp, dcp, dap, B, L, H, hg, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(P, N, x, dt, A, Bm, Cm, dy, s_in, dfinal, dx, ddt, dA, dB, dC, dinit,
                            ds_end, dbp, dcp, dap, B, L, H, Q, hg, s);

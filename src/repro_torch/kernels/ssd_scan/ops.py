@@ -25,7 +25,11 @@ same route, which also writes the state at every chunk start (``S_in``,
 f32) for the backward; its backward launches the backward kernels
 (`ssd_bwd`, ``csrc/ssd_scan_bwd.cu``) on CUDA tensors and runs their plain
 version, `ref.ssd_chunked_bwd`, on CPU tensors, and never re-runs the
-sequential forward pass. The serving path (no grad) launches exactly what
+sequential forward pass. The backward has the same two routes, chosen by
+`route` at its own chunk ``min(chunk, L)``: bf16 at the route's shapes on
+tensor cores (``ssd_state_bwd_wgmma``, ``ssd_chunk_bwd_wgmma``, rounding as
+`ref.ssd_tensor_core_bwd_emulation` writes out), everything else on the
+scalar kernels. The serving path (no grad) launches exactly what
 it did before. The reference trains on its plain scan under XLA's
 autodiff (its Pallas kernel has no gradient); this is the port's
 counterpart. On a CPU tensor `ssd` itself stays the plain version under
@@ -68,16 +72,21 @@ TC_STATE_DIMS = (32, 64, 128)  # N
 # far beyond it.
 TC_REL_LIMIT = 6e-3
 # The bf16 backward (dx, ddt, dA, dB, dC, dinit) against the plain backward in
-# f32 on the same bf16 inputs, ||out - ref|| / ||ref|| of each: the kernels
-# widen bf16 to f32 and round only dx, dB and dC, but the state at each chunk
-# start comes from the forward's tensor-core route, whose state increment is
-# rounded to bf16 (`ref.ssd_tensor_core_emulation`), so the reading is that
-# rounding and the outputs' own, some 2e-3 to 4e-3 (the emulation in
-# tests/test_torch_ssd_grad.py). chip_smoke.py plants two faults in the
-# plain backward (dS not carried across one chunk; the reverse cumsum of
-# dcums dropped), which must land beyond twice this limit.
+# f32 from the exact states on the same bf16 inputs, ||out - ref|| / ||ref||
+# of each, on either route. The state at each chunk start comes from the
+# forward's tensor-core route, its increments rounded to bf16
+# (`ref.ssd_tensor_core_states`). The scalar kernels widen bf16 to f32 and
+# round only dx, dB and dC: with those states some 2e-3 to 4e-3. The
+# tensor-core route also rounds to bf16 the operands of its products: exp(cums)
+# dy in the state pass, M = G E and dG, and dS and S as the state operands
+# (`ref.ssd_tensor_core_bwd_emulation`; every sum that feeds ddt, dA and
+# dcums stays f32): the emulation reads at most 2.4e-3 in
+# tests/test_torch_ssd_grad.py, the kernels at most 4.0e-3 over
+# chip_smoke.py's sweep on an H100. chip_smoke.py plants two faults in the plain
+# backward (dS not carried across one chunk; the reverse cumsum of dcums
+# dropped), which must land beyond twice this limit.
 SSD_BWD_BF16_REL = 1e-2
-_HG_MAX = 8  # heads per ssd_chunk_bwd block, at most
+_HG_MAX = 8  # heads per ssd_chunk_bwd block, at most (the tensor-core kernel's HG_MAX)
 _sms: dict = {}  # SM count per card
 
 
@@ -116,10 +125,22 @@ def _bwd_fn():
             ptr_t, ptr_t, ptr_t, ptr_t, ptr_t, ptr_t,  # dx, ddt, dA, dB, dC, dinit (or null)
             ptr_t, ptr_t, ptr_t, ptr_t,  # scratch: dS at chunk ends, dB, dC, dA partials
             int_t, int_t, int_t, int_t, int_t, int_t, int_t, int_t,  # B, L, H, P, N, Q, hg, dtype
-            ptr_t,  # stream
+            int_t, ptr_t,  # route, stream
         ]
         fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_route(dtype: torch.dtype, p: int, n: int, chunk: int, l: int,
+              kernel: Optional[str] = None) -> str:
+    """The route of `ssd_bwd` at its chunk ``min(chunk, l)``: ``kernel`` where
+    given (`SCALAR` takes every call; `TENSOR_CORE` only what `route`
+    gives it, else this raises), else `route`'s choice."""
+    chosen = route(dtype, p, n, min(chunk, l))
+    kernel = chosen if kernel is None else kernel
+    require(kernel in (chosen, SCALAR), f"{_KB}: the {kernel} route does not take {dtype} at "
+            f"P={p} N={n} chunk={min(chunk, l)}")
+    return kernel
 
 
 def _head_group(h: int, nc: int, b: int, device: torch.device) -> int:
@@ -206,12 +227,15 @@ def ssd_bwd(
     chunk: int = 128,
     init_state: Optional[torch.Tensor] = None,  # the forward's, read only to recompute S_in
     with_dinit: bool = True,
+    kernel: Optional[str] = None,  # `TENSOR_CORE` or `SCALAR`; None: `bwd_route`'s choice
 ) -> Tuple[torch.Tensor, ...]:
     """(dx, ddt, dA, dB, dC, dinit) of `ssd` at these inputs, given the
-    forward's ``s_in``: the backward kernels (one C call, three launches:
-    ``ssd_state_bwd``, ``ssd_chunk_bwd``, ``ssd_bwd_reduce``), or their
+    forward's ``s_in``: the backward kernels of the route `bwd_route` picks
+    (one C call, three launches: ``ssd_state_bwd``, ``ssd_chunk_bwd`` and
+    ``ssd_bwd_reduce``, with ``_wgmma`` on the tensor-core route), or their
     plain version on CPU tensors. dinit is None unless ``with_dinit``.
-    Counts one launch per call."""
+    ``kernel`` forces a route (to time one against the other). Counts one
+    launch per call."""
     require(x.dim() == 4 and x.shape[1] >= 1, f"{_KB}: x must be (B, L, H, P) with L >= 1")
     b, l, h, p = x.shape
     q = min(chunk, l)
@@ -221,6 +245,7 @@ def ssd_bwd(
     check_no_grad(_KB, "the backward has no gradient of its own: no double backward",
                   x=x, dt=dt, A=A, B=Bm, C=Cm, s_in=s_in, dy=dy, dfinal=dfinal)
     b, l, h, p, n = _check_args(_KB, x, dt, A, Bm, Cm, chunk)
+    kernel = bwd_route(x.dtype, p, n, chunk, l, kernel)
     nc = -(-l // q)
     require(s_in is not None, f"{_KB}: s_in, the forward's state at every chunk start, is needed")
     check_shape(_KB, "s_in", s_in, (b, nc, h, p, n))
@@ -249,11 +274,12 @@ def ssd_bwd(
         None if dfinal is None else ptr(dfinal),
         ptr(dx), ptr(ddt), ptr(dA), ptr(dB), ptr(dC), None if dinit is None else ptr(dinit),
         ptr(ds_end), ptr(dbp), ptr(dcp), ptr(dap),
-        b, l, h, p, n, q, hg, DTYPE_CODE[x.dtype], stream_ptr(x.device),
+        b, l, h, p, n, q, hg, DTYPE_CODE[x.dtype], _ROUTE_CODE[kernel], stream_ptr(x.device),
     )
     if err != 0:
         raise RuntimeError(f"{_KB}: kernel launch failed with cudaError {err}")
     ssd_bwd.launches += 1
+    ssd_bwd.route_launches[kernel] += 1
     return dx, ddt, dA, dB, dC, dinit
 
 
@@ -326,3 +352,4 @@ def ssd(
 ssd.launches = 0  # calls that launched a kernel since the last reset
 ssd.route_launches = {TENSOR_CORE: 0, SCALAR: 0}  # the same, by route
 ssd_bwd.launches = 0  # backward calls (three kernels each) since the last reset
+ssd_bwd.route_launches = {TENSOR_CORE: 0, SCALAR: 0}  # the same, by route

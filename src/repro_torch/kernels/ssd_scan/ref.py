@@ -211,6 +211,39 @@ def ssd_chunked_bwd(
     the last row, and dA = sum dt da. E is a select over j <= i, never a
     product with a mask and never exp(cums_i) exp(-cums_j): both overflow.
     Padded rows of a ragged last chunk (dt = 0 there) get no gradient."""
+    return _chunked_bwd(x, dt, A, B, C, chunk, init_state, s_in, dy, dfinal, tensor_core=False)
+
+
+def ssd_tensor_core_bwd_emulation(
+    x: torch.Tensor,  # (B, L, H, P)
+    dt: torch.Tensor,  # (B, L, H) f32
+    A: torch.Tensor,  # (H,) f32
+    B: torch.Tensor,  # (B, L, N), ngroups = 1
+    C: torch.Tensor,  # (B, L, N)
+    chunk: int,
+    init_state: Optional[torch.Tensor],  # (B, H, P, N) f32 or None (zeros)
+    s_in: Optional[torch.Tensor],  # (B, NC, H, P, N) f32; None: the tensor-core forward's
+    dy: torch.Tensor,  # (B, L, H, P)
+    dfinal: Optional[torch.Tensor],  # (B, H, P, N) f32, or None (the final state unused)
+) -> Tuple[torch.Tensor, ...]:
+    """The tensor-core route of the backward kernels (``ssd_state_bwd_wgmma``
+    then ``ssd_chunk_bwd_wgmma``) written out in f32 with its rounding
+    points, as `ssd_chunked_bwd` returns it. x, dy, B and C as given (bf16
+    on that route) and every product accumulated in f32; rounded to bf16
+    before a product: exp(cums_i) dy_i, the A operand of the state pass's
+    increment; M = G E (M^T dy) and dG = (dy . x^T) E dt_j (dG^T C, dG B);
+    dS at every chunk end and S at every chunk start as the state operands
+    of dS B_j, dS^T x_j and S^T dy_i. Never rounded: the carried dS, G,
+    dy . x^T, K, R and every sum that feeds ddt, dcums, da and dA, <dS, S>
+    included. dx, dB and dC come rounded to their inputs' dtypes. S_in is
+    the forward's: None takes it as the tensor-core forward writes it, its
+    state increments rounded (`ssd_tensor_core_states`)."""
+    return _chunked_bwd(x, dt, A, B, C, chunk, init_state, s_in, dy, dfinal, tensor_core=True)
+
+
+def _chunked_bwd(x, dt, A, B, C, chunk, init_state, s_in, dy, dfinal, tensor_core):
+    """`ssd_chunked_bwd`'s body; with ``tensor_core``, the rounding points of
+    `ssd_tensor_core_bwd_emulation`."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     nc = -(-l // chunk)
@@ -225,13 +258,16 @@ def ssd_chunked_bwd(
     cums = torch.cumsum(dtc * A, dim=2)  # (b, nc, q, h); pad rows keep the last
     last = cums[:, :, -1]  # (b, nc, h)
     if s_in is None:
-        s_in = _chunk_states(xc, dtc, Bc, cums, init_state)[0]
+        s_in = _chunk_states(xc, dtc, Bc, cums, init_state, tensor_core)[0]
     s_in = s_in.to(f32)
     ei = torch.exp(cums)  # exp(cums_i)
     eo = torch.exp(last[:, :, None] - cums)  # exp(cums_last - cums_j)
 
+    def rnd(t):  # a product's operand as the tensor-core route rounds it
+        return t.to(torch.bfloat16).to(f32) if tensor_core else t
+
     # the state's gradient, last chunk first: dS at every chunk's end
-    inc = torch.einsum("bcih,bcihp,bcin->bchpn", ei, dyc, Cc)
+    inc = torch.einsum("bcihp,bcin->bchpn", rnd(ei[..., None] * dyc), Cc)
     ds = dfinal.to(f32) if dfinal is not None else x.new_zeros((b, h, p, n), dtype=f32)
     ds_end = [None] * nc
     for c in reversed(range(nc)):
@@ -249,13 +285,14 @@ def ssd_chunked_bwd(
     k = m * dyx
     r = k * dtj
 
-    v = torch.einsum("bchpn,bcjn->bcjhp", ds_end, Bc)  # dS B_j
-    w = torch.einsum("bchpn,bcihp->bcihn", s_in, dyc)  # S^T dy_i
-    z = torch.einsum("bchpn,bcjhp->bcjhn", ds_end, xc)  # dS^T x_j
+    v = torch.einsum("bchpn,bcjn->bcjhp", rnd(ds_end), Bc)  # dS B_j
+    w = torch.einsum("bchpn,bcihp->bcihn", rnd(s_in), dyc)  # S^T dy_i
+    z = torch.einsum("bchpn,bcjhp->bcjhn", rnd(ds_end), xc)  # dS^T x_j
     u = (xc * v).sum(-1)  # (b, nc, q, h)
     qv = (Cc[:, :, :, None, :] * w).sum(-1)  # C_i . S^T dy_i
 
-    dx = dtc[..., None] * (torch.einsum("bchij,bcihp->bcjhp", m, dyc) + eo[..., None] * v)
+    dx = dtc[..., None] * (torch.einsum("bchij,bcihp->bcjhp", rnd(m), dyc) + eo[..., None] * v)
+    dg = rnd(dg)
     dC = torch.einsum("bchij,bcjn->bcin", dg, Bc) + torch.einsum("bcih,bcihn->bcin", ei, w)
     dB = torch.einsum("bchij,bcin->bcjn", dg, Cc) + torch.einsum("bcjh,bcjhn->bcjn", eo * dtc, z)
     ddt = k.sum(-2).permute(0, 1, 3, 2) + eo * u

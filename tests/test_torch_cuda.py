@@ -374,6 +374,48 @@ def test_ssd_gradient_on_the_card_matches_the_plain_backward(cuda, dtype):
             assert float((g.float() - r).norm() / r.norm()) <= SSD_BWD_BF16_REL
 
 
+@pytest.mark.parametrize("shape", [(2, 200, 3, 32, 128, 64), (1, 300, 20, 64, 64, 128)])
+def test_ssd_backward_routes_on_the_card(cuda, shape):
+    """At a shape the tensor-core route takes (Q = 64 with P = 32, N = 128 and
+    a ragged L; Q = 128 with a partial head group), bf16: `ssd_bwd` runs
+    the tensor-core kernels by default and the scalar kernels when asked,
+    counted per route; both within SSD_BWD_BF16_REL of the f32 plain
+    backward from the exact states, the tensor-core one also within it of
+    `ssd_tensor_core_bwd_emulation`, and two calls bit-identical."""
+    from repro_torch.kernels.ssd_scan.ops import (SCALAR, SSD_BWD_BF16_REL, TENSOR_CORE,
+                                                  ssd_bwd, ssd_fwd)
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd, ssd_tensor_core_bwd_emulation
+
+    b, l, h, p, n, chunk = shape
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    bf = torch.bfloat16
+    x, Bm, Cm, dy = (rnd(b, l, h, p, scale=0.5).to(bf), rnd(b, l, n, scale=0.3).to(bf),
+                     rnd(b, l, n, scale=0.3).to(bf), rnd(b, l, h, p).to(bf))
+    dt = torch.rand((b, l, h), generator=gen, device=cuda) * 0.099 + 0.001
+    A = -(torch.rand((h,), generator=gen, device=cuda) * 3.5 + 0.5)
+    s0, dfinal = rnd(b, h, p, n), rnd(b, h, p, n)
+    _, _, s_in = ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+    before = dict(ssd_bwd.route_launches)
+    tc = ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, dfinal, chunk=chunk, init_state=s0)
+    again = ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, dfinal, chunk=chunk, init_state=s0)
+    scalar = ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, dfinal, chunk=chunk, init_state=s0,
+                     kernel=SCALAR)
+    assert ssd_bwd.route_launches[TENSOR_CORE] == before[TENSOR_CORE] + 2
+    assert ssd_bwd.route_launches[SCALAR] == before[SCALAR] + 1
+    assert all(torch.equal(u, v) for u, v in zip(tc, again, strict=True))
+    ref = ssd_chunked_bwd(x.float(), dt, A, Bm.float(), Cm.float(), chunk, s0, None, dy.float(),
+                          dfinal)
+    emu = ssd_tensor_core_bwd_emulation(x, dt, A, Bm, Cm, chunk, s0, s_in, dy, dfinal)
+    for t, sc, e, r in zip(tc, scalar, emu, ref, strict=True):
+        assert float((t.float() - r).norm() / r.norm()) <= SSD_BWD_BF16_REL
+        assert float((sc.float() - r).norm() / r.norm()) <= SSD_BWD_BF16_REL
+        assert float((t.float() - e.float()).norm() / r.norm()) <= SSD_BWD_BF16_REL
+
+
 def test_a_small_train_step_on_the_card_matches_the_cpu(cuda):
     """llama3-8b-smoke in f32: loss and grads of a step at 2 microbatches on
     the card (prefill kernels and their backward) against the CPU."""

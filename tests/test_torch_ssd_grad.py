@@ -5,10 +5,12 @@ numpy inputs, with cotangents on y and on the final state, for x, dt, A, B,
 C and the initial state, within 2e-5 x max(1, max|ref|) in f32;
 ``SSDScanFn`` on CPU tensors against autograd of the plain ``ssd_chunked``;
 ``ssd`` under grad off the CPU (a meta tensor stands in for the card)
-reaching ``SSDScanFn``; and the bf16 route's rounding, emulated in plain
-PyTorch (the state at each chunk start as the forward's tensor-core route
-writes it, dx, dB and dC rounded to bf16), within ``SSD_BWD_BF16_REL`` of
-the f32 backward, the limit ``chip_smoke.py`` holds the kernels to. The
+reaching ``SSDScanFn``; the route ``ssd_bwd`` hands the C entry; and the
+rounding of both bf16 routes, emulated in plain PyTorch (the state at each
+chunk start as the forward's tensor-core route writes it; the scalar
+kernels round dx, dB and dC, the tensor-core kernels also their products'
+operands, ``ssd_tensor_core_bwd_emulation``), within ``SSD_BWD_BF16_REL``
+of the f32 backward, the limit ``chip_smoke.py`` holds the kernels to. The
 kernels themselves are held against the plain backward on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` (marked ``cuda``).
 
@@ -28,6 +30,7 @@ from repro_torch.kernels.ssd_scan.ops import SSD_BWD_BF16_REL, SSDScanFn, ssd, s
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunked,
     ssd_chunked_bwd,
+    ssd_tensor_core_bwd_emulation,
     ssd_tensor_core_states,
 )
 
@@ -44,6 +47,17 @@ CASES = {
     "p64-n64-q48-ragged-init": (1, 200, 2, 64, 64, 48, True),
     "tiny-l5-init": (1, 5, 2, 32, 16, 128, True),
 }
+# shapes the tensor-core route takes in bf16: every Q, P and N of it, with
+# and without an initial state and a ragged L
+ROUTE_CASES = {
+    "q64-p64-n32": (2, 256, 4, 64, 32, 64, False),
+    "q64-p32-n128-ragged-init": (1, 200, 3, 32, 128, 64, True),
+    "q64-p64-n64-init": (1, 128, 2, 64, 64, 64, True),
+    "q128-p32-n32": (1, 256, 2, 32, 32, 128, False),
+    "q128-p64-n64-ragged-init": (2, 300, 2, 64, 64, 128, True),
+    "q128-p64-n128-ragged": (1, 300, 2, 64, 128, 128, False),
+}
+GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 
 
 def _inputs(rng, b, l, h, p, n):
@@ -187,11 +201,81 @@ def test_bf16_rounding_emulation_is_within_the_limit(case, rng):
     s_in = ssd_tensor_core_states(x, dt, A, Bm, q, s0)
     emu = ssd_chunked_bwd(x, dt, A, Bm, Cm, q, s0, s_in, dy, dfinal)
     assert emu[0].dtype == bf and emu[3].dtype == bf and emu[4].dtype == bf
-    for name, e, r in zip(("dx", "ddt", "dA", "dB", "dC", "dinit"), emu, ref, strict=True):
+    for name, e, r in zip(GRADS, emu, ref, strict=True):
         rel = float((e.float() - r).norm() / r.norm())
         assert rel <= SSD_BWD_BF16_REL, (name, rel)
         if name in ("dx", "dB", "dC"):
             assert rel > 1e-4, (name, rel)
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_tensor_core_backward_emulation_is_within_the_limit(case, rng):
+    """The tensor-core backward's rounding points written out
+    (`ssd_tensor_core_bwd_emulation`, after the tensor-core forward's states)
+    at every Q, P and N of the route: each gradient within
+    `SSD_BWD_BF16_REL` in relative norm of the f32 backward from the exact
+    states, and dx, dB, dC and dinit (whose state pass rounds exp(cums) dy)
+    above 1e-4: the emulation does round."""
+    b, l, h, p, n, chunk, with_s0 = ROUTE_CASES[case]
+    x, dt, A, Bm, Cm, s0, dy, dfinal = _t(*_inputs(rng, b, l, h, p, n))
+    bf = torch.bfloat16
+    x, Bm, Cm, dy = (t.to(bf) for t in (x, Bm, Cm, dy))
+    s0 = s0 if with_s0 else None
+    assert ops.bwd_route(bf, p, n, chunk, l) == ops.TENSOR_CORE
+    ref = ssd_chunked_bwd(x.float(), dt, A, Bm.float(), Cm.float(), chunk, s0, None, dy.float(),
+                          dfinal)
+    emu = ssd_tensor_core_bwd_emulation(x, dt, A, Bm, Cm, chunk, s0, None, dy, dfinal)
+    given = ssd_tensor_core_bwd_emulation(x, dt, A, Bm, Cm, chunk, s0,
+                                          ssd_tensor_core_states(x, dt, A, Bm, chunk, s0), dy,
+                                          dfinal)
+    assert all(torch.equal(e, g) for e, g in zip(emu, given, strict=True))  # None: those states
+    assert emu[0].dtype == bf and emu[3].dtype == bf and emu[4].dtype == bf
+    for name, e, r in zip(GRADS, emu, ref, strict=True):
+        rel = float((e.float() - r).norm() / r.norm())
+        assert rel <= SSD_BWD_BF16_REL, (name, rel)
+        if name in ("dx", "dB", "dC", "dinit"):
+            assert rel > 1e-4, (name, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_backward_takes_the_route_of_its_chunk(dtype, monkeypatch):
+    """`ssd_bwd` off the CPU (meta tensors stand in for the card, the C entry
+    replaced by a recorder) hands the C entry the route `route` gives its
+    chunk min(chunk, L), for every shape of `CASES` and `ROUTE_CASES`, and
+    counts it; `kernel="scalar"` forces the scalar kernels, and the
+    tensor-core route refuses a call it cannot take."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(ops, "_check_args", lambda k, x, dt, A, Bm, Cm, chunk: (
+        *x.shape, Bm.shape[-1]))
+    monkeypatch.setattr(ops, "check_tensors", lambda *a, **k: None)
+    monkeypatch.setattr(ops, "ptr", lambda t: 0)
+    monkeypatch.setattr(ops, "stream_ptr", lambda d: 0)
+    monkeypatch.setattr(ops, "_head_group", lambda *a: 8)
+    monkeypatch.setattr(ops, "_bwd_fn", lambda: entry)
+
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dt)
+
+    for b, l, h, p, n, chunk, _ in [*CASES.values(), *ROUTE_CASES.values()]:
+        q = min(chunk, l)
+        args = (meta(b, l, h, p, dt=dtype), meta(b, l, h), meta(h), meta(b, l, n, dt=dtype),
+                meta(b, l, n, dt=dtype), meta(b, -(-l // q), h, p, n), meta(b, l, h, p, dt=dtype))
+        for kernel in (None, ops.SCALAR):
+            want = ops.route(dtype, p, n, q) if kernel is None else ops.SCALAR
+            before = dict(ssd_bwd.route_launches)
+            ssd_bwd(*args, chunk=chunk, kernel=kernel)
+            assert calls[-1][23] == q and calls[-1][-2] == ops._ROUTE_CODE[want], (b, l, p, n)
+            assert ssd_bwd.route_launches[want] == before[want] + 1
+        if ops.route(dtype, p, n, q) == ops.SCALAR:
+            with pytest.raises(ValueError, match="tensor_core route does not take"):
+                ssd_bwd(*args, chunk=chunk, kernel=ops.TENSOR_CORE)
+    routes = {c[-2] for c in calls}
+    assert routes == ({0, 1} if dtype == torch.bfloat16 else {0})
 
 
 def test_the_profile_files_the_ssd_kernels_under_their_own_groups():
@@ -205,5 +289,6 @@ def test_the_profile_files_the_ssd_kernels_under_their_own_groups():
                  "ssd_scan_kernel<float, 64, 64>"):
         assert kernel_group(ns + name + "(...)") == "ssd_scan", name
     for name in ("ssd_state_bwd<__nv_bfloat16, 64, 64>", "ssd_chunk_bwd<float, 16, 128>",
-                 "ssd_bwd_reduce<__nv_bfloat16>"):
+                 "ssd_bwd_reduce<__nv_bfloat16>", "tc::ssd_state_bwd_wgmma<128, 64, 64>",
+                 "tc::ssd_chunk_bwd_wgmma<64, 32, 128>"):
         assert kernel_group(ns + name + "(...)") == "ssd_scan_bwd", name
