@@ -8,7 +8,8 @@ Phases, each printed on its own lines:
 
   device   the card's name and power limit (nvidia-smi); TF32 off for
            float32 matmuls and convolutions, so f32 means f32
-  build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
+  build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+           the roofline report starts beside the phases, on the host's CPU
   kernels  every kernel against its plain PyTorch version on the card, over
            the sweep of tests/test_kernels.py (plus Dh=256) and at the serving
            shapes of llama3-8b (attention), zamba2-2.7b (attention at Dh=80,
@@ -93,12 +94,28 @@ Phases, each printed on its own lines:
            forward 36; remat runs each forward twice), the last loss below
            the first and the first batch's loss lower after training; each
            step's time, tokens/s, model-FLOPs share of the card's dense bf16
-           peak (`_train_flops`) and peak memory are printed, and one more
+           peak (`roofline.analysis.train_flops`) and peak memory are
+           printed, and one more
            step is profiled by kernel group (the global batch halves if the
            first step's peak passes 72 GB)
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
            policies, slot then paged KV; both attention kernels must launch
+  roofline every bound from one place (`roofline.analysis.bound` on
+           `roofline.hw.H100`, the kernels' `work()`): the report over every
+           arch x shape cell at full size on meta tensors (32 counted, the 8
+           long_500k cells of the full-attention archs skipped); llama3-8b's
+           prefill chunk (512 tokens at offset 1536, max_len 2048) and slot
+           decode step (8 lanes at 2048: gather, decode, scatter, sample) at
+           full width in bf16, counted by `roofline.op_stats` on the card
+           (both attention kernels launch, once a layer) and on meta tensors
+           (FLOPs and bytes must be equal), each timed device alone and by
+           its kernels' busy time against its analytic and op-count bounds;
+           the serve phase's decode steps against the same bounds and, with
+           its chunks, against `ChipCostModel`'s predictions; the train
+           phase's steps against their op-count bounds, with the op-count
+           FLOPs beside `model_flops_for` and `train_flops`. A measured
+           share above 1 of its bound is a counting error and fails the run
   fleet    the session stack above the engine, llama3-8b at full width and
            depth in bf16 (random weights from a seed, one copy shared by
            every server, real clocks): 16 requests of 64-1536 tokens (half
@@ -214,8 +231,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense, same sheet
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}  # atol = rtol, as tests/test_kernels.py
 # bf16 prefill, relative to the f32 plain version (`_prefill_ref_f32`), beside
 # the 2e-2 elementwise tolerance: the 2e-2 is some two thirds of a typical
@@ -291,6 +306,7 @@ def phase_device(ctx) -> None:
 def phase_build(ctx) -> None:
     from repro_torch.kernels import build
 
+    _start_report(ctx)  # the roofline phase reads it
     t0 = time.perf_counter()
     built = build.build_all()
     wall = time.perf_counter() - t0
@@ -330,6 +346,24 @@ def _time_ms(fn, *, iters: int, flush, device_only: bool = False) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def _busy_ms(fn, *, iters: int) -> float:
+    """The device's busy time in ``fn`` per call: the sum of its device
+    activities (kernels, copies) under torch.profiler, into which no host gap
+    between them enters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile import device_kernels
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(k1 - k0 for _, k0, k1 in device_kernels(prof.events())) / 1e3 / iters
 
 
 def _rel_err(out, ref) -> float:
@@ -655,8 +689,9 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0, kv_lens=None) -> 
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention, visible_rows, work
     from repro_torch.kernels.prefill_attention.ref import prefill_attention_ref
+    from repro_torch.roofline.analysis import bound
 
     dev = torch.device("cuda")
     q_pos = (torch.arange(sq, device=dev, dtype=torch.int32) + (skv - sq))[None].expand(b, sq)
@@ -686,10 +721,8 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0, kv_lens=None) -> 
     lib = lambda device_only: _time_ms(  # noqa: E731
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
         iters=20, flush=flush, device_only=device_only)
-    visible = torch.minimum(q_pos.long() + 1, kv_len.long()[:, None]).sum().item()
-    kv_rows = int(torch.minimum(q_pos.long().amax(1) + 1, kv_len.long()).sum())  # rows read
-    flops = 4 * hq * dh * visible
-    nbytes = 2 * (2 * b * sq * hq * dh + 2 * kv_rows * hkv * dh) + 4 * (b * sq + b)
+    bound_ms, bound_by = bound(*work(b, sq, hq, hkv, dh, *visible_rows(q_pos, kv_len, skv)),
+                               torch.bfloat16)
     return dict(
         name="prefill_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/prefill_attention.cu",
@@ -703,8 +736,7 @@ def _prefill_row(gen, flush, b, sq, skv, hq, hkv, dh, cap=0.0, kv_lens=None) -> 
                            iters=20, flush=flush, device_only=True),
         plain_ms=_time_ms(lambda: prefill_attention_ref(q, k, v, q_pos, kv_len, logit_cap=cap),
                           iters=5, flush=flush),
-        library_ms=lib(False), library_device_ms=lib(True),
-        **_bound(flops, nbytes, "torch.bfloat16"),
+        library_ms=lib(False), library_device_ms=lib(True), bound_ms=bound_ms, bound_by=bound_by,
         shape=(f"B={b} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} Dh={dh} bf16, q_pos {skv - sq}.."
                f"{skv - 1}" + (f", kv_len {kv_lens}" if kv_lens else "")
                + (f", logit cap {cap} (SDPA uncapped)" if cap else "")),
@@ -721,8 +753,9 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ops import decode_attention, work
     from repro_torch.kernels.decode_attention.ref import SPLIT_ROWS, decode_attention_ref
+    from repro_torch.roofline.analysis import bound
 
     dev = torch.device("cuda")
     kv_len = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
@@ -757,9 +790,7 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
     lib = lambda device_only: _time_ms(  # noqa: E731
         lambda: F.scaled_dot_product_attention(qt4, kt, vt, attn_mask=dmask, enable_gqa=True),
         iters=50, flush=flush, device_only=device_only)
-    tot = int(kv_len.sum())
-    flops = 4 * hq * dh * tot
-    nbytes = 2 * (2 * tot * hkv * dh + 2 * b * hq * dh) + 4 * b
+    bound_ms, bound_by = bound(*work(b, hq, hkv, dh, int(kv_len.sum())), torch.bfloat16)
     return dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -772,8 +803,7 @@ def _decode_row(gen, flush, b, s, hq, hkv, dh, kv_lens) -> dict:
                            device_only=True),
         plain_ms=_time_ms(lambda: decode_attention_ref(q, k, v, kv_len), iters=10,
                           flush=flush),
-        library_ms=lib(False), library_device_ms=lib(True),
-        **_bound(flops, nbytes, "torch.bfloat16"),
+        library_ms=lib(False), library_device_ms=lib(True), bound_ms=bound_ms, bound_by=bound_by,
         shape=f"B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh} bf16, kv_len {kv_len.tolist()}",
     )
 
@@ -947,8 +977,13 @@ def _prefill_bwd_row(ctx, gen, flush, b, s, hq, hkv, dh, cap=0.0, tag="") -> dic
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.prefill_attention.ops import prefill_attention_bwd
+    from repro_torch.kernels.prefill_attention.ops import (
+        bwd_work,
+        prefill_attention_bwd,
+        visible_rows,
+    )
     from repro_torch.kernels.prefill_attention.ref import prefill_attention_bwd_ref
+    from repro_torch.roofline.analysis import bound
 
     r = _bwd_check(gen, b, s, s, hq, hkv, dh, cap, faults=True)
     q, k, v, do, q_pos, kv_len, out, lse = r.pop("inputs")
@@ -972,9 +1007,8 @@ def _prefill_bwd_row(ctx, gen, flush, b, s, hq, hkv, dh, cap=0.0, tag="") -> dic
     def lib():
         torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
 
-    visible = b * s * (s + 1) // 2
-    flops = 5 * 2 * hq * dh * visible
-    nbytes = 2 * (4 * b * s * hq * dh + 4 * b * s * hkv * dh) + 4 * b * hq * s + 4 * (b * s + b)
+    bound_ms, bound_by = bound(
+        *bwd_work(b, s, s, hq, hkv, dh, visible_rows(q_pos, kv_len, s)[0]), torch.bfloat16)
     row = dict(
         name="prefill_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/prefill_attention_bwd.cu",
@@ -986,7 +1020,7 @@ def _prefill_bwd_row(ctx, gen, flush, b, s, hq, hkv, dh, cap=0.0, tag="") -> dic
         plain_ms=_time_ms(plain, iters=2, flush=flush),
         library_ms=_time_ms(lib, iters=10, flush=flush),
         library_device_ms=_time_ms(lib, iters=10, flush=flush, device_only=True),
-        **_bound(flops, nbytes, "torch.bfloat16"),
+        bound_ms=bound_ms, bound_by=bound_by,
         shape=f"B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh} bf16, causal" + (
             f", logit cap {cap} (SDPA uncapped)" if cap else ""),
     )
@@ -1134,20 +1168,6 @@ def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False) -> d
     return res
 
 
-def _ssd_bwd_work(b, l, h, p, n, chunk, esize):
-    """(operations, bytes) of one SSD backward: per (batch, head, chunk of q
-    rows) 2 q^2 (2 P + 3 N) (G, dy.x^T, M^T dy, dG B, dG^T C) + 8 q P N (the
-    four state products); x, dy and dx, S_in (f32, one state per chunk), dt
-    and ddt, A and dA, B, C, dB and dC once, as training calls it (no initial
-    state, the final state unused)."""
-    q = min(chunk, l)
-    rows = [q] * (l // q) + ([l % q] if l % q else [])
-    flops = b * h * sum(2 * r * r * (2 * p + 3 * n) + 8 * r * p * n for r in rows)
-    nbytes = (esize * (3 * b * l * h * p + 4 * b * l * n) + 4 * b * len(rows) * h * p * n
-              + 4 * (2 * b * l * h + 2 * h))
-    return flops, nbytes
-
-
 def _ssd_bwd_rows(ctx, gen, flush) -> dict:
     """The SSD backward kernels (ssd_scan_bwd.cu) against their plain
     backward: the sweep in f32 and bf16 (the route of each bf16 case
@@ -1159,8 +1179,15 @@ def _ssd_bwd_rows(ctx, gen, flush) -> dict:
     No single PyTorch call computes this function: no library time."""
     import torch
 
-    from repro_torch.kernels.ssd_scan.ops import SCALAR, SSD_BWD_BF16_REL, TENSOR_CORE, ssd_bwd
+    from repro_torch.kernels.ssd_scan.ops import (
+        SCALAR,
+        SSD_BWD_BF16_REL,
+        TENSOR_CORE,
+        bwd_work,
+        ssd_bwd,
+    )
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
+    from repro_torch.roofline.analysis import bound
 
     worst = {"f32": 0.0, "bf16": 0.0, "emu": 0.0}
     routes: dict = {}
@@ -1208,13 +1235,14 @@ def _ssd_bwd_rows(ctx, gen, flush) -> dict:
             ssd_chunked_bwd(x, dt, A, Bm, Cm, chunk, None, s_in, dy, None)
 
         names = ("ssd_state_bwd", "ssd_chunk_bwd", "ssd_bwd_reduce")
+        bound_ms, bound_by = bound(*bwd_work(b, l, h, p, n, chunk, 2), torch.bfloat16)
         t = dict(ms=_time_ms(kernel, iters=10, flush=flush),
                  device_ms=_time_ms(kernel, iters=10, flush=flush, device_only=True),
                  scalar_ms=_time_ms(scalar, iters=5, flush=flush),
                  scalar_device_ms=_time_ms(scalar, iters=5, flush=flush, device_only=True),
                  plain_ms=_time_ms(plain, iters=3, flush=flush),
                  kernels=_kernel_ms(kernel, names), scalar_kernels=_kernel_ms(scalar, names),
-                 **_bound(*_ssd_bwd_work(b, l, h, p, n, chunk, 2), "torch.bfloat16"))
+                 bound_ms=bound_ms, bound_by=bound_by)
         k, ks = t["kernels"], t["scalar_kernels"]
         say(f"[kernels] ssd_scan_bwd ({arch}) at B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16 "
             f"(forward route {r['route']}): tensor-core route {t['ms']:.4f} ms per call (device "
@@ -1331,8 +1359,16 @@ def _ssd_checks(ctx, gen, flush) -> dict:
 
     import torch
 
-    from repro_torch.kernels.ssd_scan.ops import SCALAR, TC_REL_LIMIT, TENSOR_CORE, route, ssd
+    from repro_torch.kernels.ssd_scan.ops import (
+        SCALAR,
+        TC_REL_LIMIT,
+        TENSOR_CORE,
+        route,
+        ssd,
+        work,
+    )
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.roofline.analysis import bound
 
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     dev = torch.device("cuda")
@@ -1389,6 +1425,7 @@ def _ssd_checks(ctx, gen, flush) -> dict:
                   f"ssd_scan {name}: a fault the limit must catch reads {controls[name]}, not "
                   f"clearly beyond {TC_REL_LIMIT}")
             args = (x, dt, A, Bm, Cm)
+            bound_ms, bound_by = bound(*work(b, l, h, p, n, chunk, 2), torch.bfloat16)
             timed[name] = dict(
                 ms=_time_ms(lambda: ssd(*args), iters=20, flush=flush),
                 device_ms=_time_ms(lambda: ssd(*args), iters=20, flush=flush, device_only=True),
@@ -1398,7 +1435,7 @@ def _ssd_checks(ctx, gen, flush) -> dict:
                 plain_ms=_time_ms(lambda: ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None],
                                                       chunk), iters=5, flush=flush),
                 kernels={**_ssd_kernel_ms(args, TENSOR_CORE), **_ssd_kernel_ms(args, SCALAR)},
-                **_bound(*_ssd_work(b, l, h, p, n, chunk, 2), "torch.bfloat16"),
+                bound_ms=bound_ms, bound_by=bound_by,
             )
     say(f"[kernels] ssd_scan sweep ok (f32 tol 1e-4, bf16 tol 2e-2 and, on the tensor-core "
         f"route, relative error within {TC_REL_LIMIT}; initial state, ragged L, L < Q, partial "
@@ -1434,24 +1471,6 @@ def _ssd_checks(ctx, gen, flush) -> dict:
     )
 
 
-def _ssd_work(b, l, h, p, n, chunk, esize):
-    """(operations, bytes) of one SSD scan: per (batch, head, chunk of q
-    rows) 2 q^2 N (C B^T) + 2 q^2 P (scores . x dt) + 2 q N P (C state^T) +
-    2 q P N (state increment); x and y, dt, B and C once, the final state."""
-    q = min(chunk, l)
-    rows = [q] * (l // q) + ([l % q] if l % q else [])
-    flops = b * h * sum(2 * r * r * (n + p) + 4 * r * n * p for r in rows)
-    nbytes = esize * (2 * b * l * h * p + 2 * b * l * n) + 4 * (b * l * h + h + b * h * p * n)
-    return flops, nbytes
-
-
-def _bound(flops: float, nbytes: float, dtype: str) -> dict:
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
-
-
 # ---------------------------------------------------------------------- serve
 def _requests(prompts, max_out, gap, ttft, tpot):
     from repro_torch.core.request import Request, SLOSpec
@@ -1465,7 +1484,8 @@ def _requests(prompts, max_out, gap, ttft, tpot):
 
 class _Probe:
     """Times the prefill chunks and decode steps of every server it watches
-    (both end in a device sync) and records, without syncing, whether every
+    (both end in a device sync), with each chunk's (tokens, offset) and each
+    step's sequence lengths, and records, without syncing, whether every
     logit row the engine produced was finite."""
 
     def __init__(self, *servers):
@@ -1474,6 +1494,7 @@ class _Probe:
         from repro_torch.serving import engine
 
         self.chunk_s, self.step_s, self.finite = [], [], []
+        self.chunk_at, self.step_seqs = [], []
         self._engine, self._sample, self._chunk = engine, engine.sample, engine.chunk_prefill_step
 
         def sample(logits, **kw):
@@ -1490,14 +1511,24 @@ class _Probe:
             self.watch(server)
 
     def watch(self, server):
-        for obj, name, sink in ((server.prefill, "run_chunk", self.chunk_s),
-                                (server.decode, "step", self.step_s)):
-            setattr(obj, name, self._timed(getattr(obj, name), sink))
+        for obj, name, sink, shape, shapes in (
+                (server.prefill, "run_chunk", self.chunk_s, self._chunk_at, self.chunk_at),
+                (server.decode, "step", self.step_s, self._step_seqs, self.step_seqs)):
+            setattr(obj, name, self._timed(getattr(obj, name), sink, shape, shapes))
         return server
 
     @staticmethod
-    def _timed(fn, sink):
+    def _chunk_at(lr, take, *_):
+        return take, lr.req.prefix_cached_tokens + lr.req.prefilled_tokens
+
+    @staticmethod
+    def _step_seqs(batch, *_):
+        return [lr.req.seq_len for lr in batch]
+
+    @staticmethod
+    def _timed(fn, sink, shape, shapes):
         def wrapped(*args, **kw):
+            shapes.append(shape(*args))
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             sink.append(time.perf_counter() - t0)
@@ -1540,6 +1571,8 @@ def _serve_once(model, params, ecfg, reqs, ctx, label, tag="serve"):
             f"ttft={r.ttft():.4f}s tpot={r.mean_tpot():.5f}s e2e_ok={r.meets_e2e()} [{card}]")
     check(finite, f"{label}: a logit row was not finite")
     check(all(n > 0 for n in launches.values()), f"{label}: a kernel never launched: {launches}")
+    if tag == "serve" and label == "slot":
+        ctx["serve_probe"] = probe  # the roofline phase reads its steps and chunks
     say(f"[{tag}] {label}: {len(reqs)} requests in {wall:.3f} s; prefill chunks "
         f"{len(probe.chunk_s)} mean {1e3 * sum(probe.chunk_s) / len(probe.chunk_s):.2f} ms; "
         f"decode steps {len(probe.step_s)} mean {1e3 * sum(probe.step_s) / len(probe.step_s):.2f} ms; "
@@ -1577,6 +1610,217 @@ def phase_serve(ctx) -> None:
         "in the parity phase)")
     del params
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------- roofline
+ROOFLINE_CHUNK = (512, 1536)  # the serve phase's prefill chunk: tokens, offset (max_len 2048)
+REPORT_TIMEOUT = 900  # seconds the roofline report may still take when the phase reads it
+
+
+def _start_report(ctx) -> None:
+    """Start ``python -m repro_torch.roofline.report`` on the host's CPU (meta
+    tensors, no card) beside the card's phases; the roofline phase reads it,
+    and `main` stops it if the run ends first."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    ctx["report"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.roofline.report", "--chips", "8"], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _roofline_report(ctx) -> None:
+    """(a) The report over ASSIGNED x ALL_SHAPES at full size: 32 cells
+    counted, the 8 long_500k cells of the full-attention archs skipped."""
+    proc = ctx.pop("report")
+    try:
+        out, _ = proc.communicate(timeout=REPORT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"[roofline] the report ran past {REPORT_TIMEOUT} s more") from None
+    check(proc.returncode == 0, f"[roofline] the report exited {proc.returncode}: {out[-3000:]}")
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    rows = [ln for ln in lines if ln.startswith("| ") and not ln.startswith("| arch ")]
+    skipped = [ln for ln in rows if "| skipped |" in ln]
+    for ln in lines:
+        say(f"[roofline] {ln} [{ctx['card']}]")
+    check(len(rows) == 40 and len(skipped) == 8
+          and all(ln.split(" | ")[1] == "long_500k" for ln in skipped),
+          f"[roofline] the report has {len(rows)} rows, {len(skipped)} skipped; expected 40 "
+          "and the 8 long_500k cells of the full-attention archs")
+    say(f"[roofline] report: {len(rows) - len(skipped)} cells counted, {len(skipped)} skipped "
+        f"(op counts on meta tensors on the host's CPU; the card's numbers from "
+        f"roofline.hw.H100) [{ctx['card']}]")
+
+
+def _decode_step_ops(params, cfg, cache, slot_idx, toks, pos):
+    """The device work of the engine's slot decode step
+    (`serving/engine.py::DecodeEngine.step`): gather the lanes, decode one
+    token, scatter the lanes back, sample."""
+    from repro_torch.models.transformer import decode_step
+    from repro_torch.serving.kvcache import gather_slots, scatter_slots
+    from repro_torch.serving.sampler import sample
+
+    sub = gather_slots(cfg, cache, slot_idx)
+    logits, sub = decode_step(params, toks, pos, cfg, sub)
+    scatter_slots(cfg, cache, sub, slot_idx)
+    return sample(logits)
+
+
+def _serve_calls(model, params, dev: str) -> dict:
+    """The serve phase's prefill chunk (ROOFLINE_CHUNK into a max_len cache)
+    and slot decode step (every lane at max_len), on ``dev`` ("cuda", or
+    "meta" with `Model.param_struct`'s params): {name: call}."""
+    import torch
+
+    from repro_torch.launch.smoke_workload import smoke_engine_config
+    from repro_torch.models.model import cache_struct
+    from repro_torch.models.transformer import chunk_prefill_step
+
+    cfg, ecfg = model.cfg, smoke_engine_config()
+    take, start = ROOFLINE_CHUNK
+    slots, max_len = ecfg.max_slots, ecfg.max_len
+    if dev == "meta":
+        chunk_cache, slot_cache = cache_struct(cfg, 1, max_len), cache_struct(cfg, slots + 1, max_len)
+        toks_c = torch.empty((1, take), dtype=torch.long, device=dev)
+        toks_d = torch.empty((slots, 1), dtype=torch.long, device=dev)
+    else:
+        # + 1: the engine's scratch lane
+        chunk_cache, slot_cache = (model.init_cache(n, max_len, device=dev) for n in (1, slots + 1))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        toks_c = torch.randint(0, cfg.vocab_size, (1, take), generator=gen, device=dev)
+        toks_d = torch.randint(0, cfg.vocab_size, (slots, 1), generator=gen, device=dev)
+    slot_idx = torch.arange(slots, device=dev)
+    pos = torch.full((slots,), max_len - 1, dtype=torch.int32, device=dev)
+    return {
+        f"prefill chunk ({take} tokens at offset {start}, max_len {max_len})":
+            lambda: chunk_prefill_step(params, toks_c, [start], [take], cfg, chunk_cache),
+        f"decode step ({slots} slots at {max_len}: gather, decode, scatter, sample)":
+            lambda: _decode_step_ops(params, cfg, slot_cache, slot_idx, toks_d, pos),
+    }
+
+
+def phase_roofline(ctx) -> None:
+    """The roofline on the card: (a) the report; (b) llama3-8b's prefill
+    chunk and decode step at the serve phase's shapes, counted on the card
+    (launching both attention kernels) and on meta tensors, which must agree,
+    each timed device alone against its analytic and op-count bounds, and
+    the serve phase's decode steps against the same bounds; (c) the train
+    phase's steps: op-count FLOPs beside the model FLOPs, and the step
+    against its op-count bound; (d) ChipCostModel's predictions against the
+    serve phase's chunks and steps. A share above 1 is a counting error."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec, train_input_specs
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.launch.smoke_workload import smoke_engine_config
+    from repro_torch.models import build_model
+    from repro_torch.roofline import op_stats, report
+    from repro_torch.roofline.analysis import (
+        analytic_memory_bytes,
+        bound,
+        model_flops_for,
+        train_flops,
+    )
+    from repro_torch.sim.costmodel import ChipCostModel
+
+    card, dev = ctx["card"], ctx["device"]
+    bf16 = torch.bfloat16
+    _roofline_report(ctx)
+
+    # (b) llama3-8b at the serve phase's shapes
+    _free()
+    # "pallas": the attention takes the kernels' wrappers on meta tensors too,
+    # the path "auto" takes on the card
+    cfg = get_config("llama3-8b").replace(attn_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    real, meta = _serve_calls(model, params, dev), _serve_calls(model, model.param_struct(), "meta")
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ecfg = smoke_engine_config()
+    specs = {"prefill": ShapeSpec("prefill_chunk", ROOFLINE_CHUNK[0], 1, "prefill"),
+             "decode": ShapeSpec("decode_step", ecfg.max_len, ecfg.max_slots, "decode")}
+    step_bounds = None
+    for (name, call), spec in zip(real.items(), specs.values(), strict=True):
+        prefill_attention.launches = decode_attention.launches = 0
+        st = op_stats.count(call)
+        torch.cuda.synchronize()
+        launched = {"prefill_attention": prefill_attention.launches,
+                    "decode_attention": decode_attention.launches}
+        kernel = "prefill_attention" if spec.kind == "prefill" else "decode_attention"
+        check(launched[kernel] == cfg.num_layers and st.kernels[kernel][0] == cfg.num_layers,
+              f"[roofline] {name}: launches {launched}, counted {st.kernels}")
+        sm = op_stats.count(meta[name])
+        check((st.flops, st.bytes_accessed) == (sm.flops, sm.bytes_accessed),
+              f"[roofline] {name}: the card counts {st.flops:.6e} FLOPs, {st.bytes_accessed:.6e} "
+              f"B; meta tensors {sm.flops:.6e}, {sm.bytes_accessed:.6e}")
+        a_ms, a_by = bound(model_flops_for(cfg, spec), analytic_memory_bytes(cfg, spec), bf16)
+        o_ms, o_by = bound(st.flops, st.bytes_accessed, bf16)
+        # a whole step issues ~2,100 launches (and the chunk three host syncs),
+        # so the host still gates the events' interval after the spin: the
+        # device's own time is its kernels' sum under the profiler
+        dev_ms = _time_ms(call, iters=10, flush=flush_buf.zero_, device_only=True)
+        busy_ms = _busy_ms(call, iters=5)
+        check(max(a_ms, o_ms) <= min(dev_ms, busy_ms), f"[roofline] {name}: {dev_ms:.4f} ms "
+              f"between events, {busy_ms:.4f} ms busy, under its bounds {a_ms:.4f} (analytic), "
+              f"{o_ms:.4f} ms (op-count)")
+        say(f"[roofline] llama3-8b bf16 {name}: op count {st.flops:.6e} FLOPs, "
+            f"{st.bytes_accessed:.6e} B ({st.ops} ops; kernels by their work "
+            f"{ {k: [int(c), f'{f:.4e}', f'{b:.4e}'] for k, (c, f, b) in st.kernels.items()} }), "
+            f"equal on meta tensors; launches {launched}; bound analytic {a_ms:.4f} ms ({a_by}: "
+            f"model FLOPs, analytic_memory_bytes), op-count {o_ms:.4f} ms ({o_by}); device busy "
+            f"(sum of its kernels, torch.profiler) {busy_ms:.4f} ms: share {a_ms / busy_ms:.4f} "
+            f"of the analytic bound, {o_ms / busy_ms:.4f} of the op-count bound; between CUDA "
+            f"events after a ~1 ms spin (`_time_ms` device alone, which the host's launches "
+            f"still gate) {dev_ms:.4f} ms: {a_ms / dev_ms:.4f}, {o_ms / dev_ms:.4f} [{card}]")
+        step_bounds = (a_ms, o_ms, busy_ms)
+    probe = ctx["serve_probe"]
+    a_ms, o_ms, busy_ms = step_bounds
+    host_ms = 1e3 * sum(probe.step_s) / len(probe.step_s)
+    check(max(a_ms, o_ms) <= host_ms, f"[roofline] the serve's decode step {host_ms:.4f} ms, "
+          f"under its bounds")
+    lanes = [len(s) for s in probe.step_seqs]
+    say(f"[roofline] the serve phase's slot decode steps ({len(probe.step_s)}, {min(lanes)}-"
+        f"{max(lanes)} lanes, each needing at most the work of {ecfg.max_slots} lanes at "
+        f"{ecfg.max_len}): host {host_ms:.4f} ms a step (engine step, synced), device busy "
+        f"{busy_ms:.4f} ms (the full step above): shares of the analytic bound {a_ms:.4f} ms "
+        f"{a_ms / host_ms:.4f} (host), {a_ms / busy_ms:.4f} (device); of the op-count bound "
+        f"{o_ms:.4f} ms {o_ms / host_ms:.4f} (host), {o_ms / busy_ms:.4f} (device) [{card}]")
+
+    # (d) the cost model against the serve phase's chunks and steps
+    cm = ChipCostModel(cfg, chips=1).to_calibrated()
+    for what, measured, predicted in (
+            ("prefill chunk", probe.chunk_s,
+             [cm.prefill_chunk_time([at]) for at in probe.chunk_at]),
+            ("decode step", probe.step_s, [cm.decode_step_time(s) for s in probe.step_seqs])):
+        m, p = sum(measured) / len(measured), sum(predicted) / len(predicted)
+        say(f"[roofline] ChipCostModel(llama3-8b, chips=1) {what}: predicted {1e3 * p:.4f} ms "
+            f"mean over the serve phase's {len(measured)}, measured {1e3 * m:.4f} ms (host, "
+            f"synced): predicted / measured {p / m:.4f} [{card}]")
+    del params, real
+    _free()
+
+    # (c) the train phase's steps
+    for arch in ("zamba2-2.7b", "minicpm-2b"):
+        tcfg = get_config(arch)
+        gb, mean = ctx["train_steps"][arch]
+        spec = ShapeSpec("train_step", TRAIN_SEQ, gb, "train")
+        pstruct = build_model(tcfg).param_struct()
+        st = report.step_stats(tcfg, spec, pstruct, train_input_specs(tcfg, spec),
+                               n_micro=TRAIN_MICRO)
+        mf, tf = model_flops_for(tcfg, spec), train_flops(tcfg, pstruct, gb * TRAIN_SEQ, TRAIN_SEQ)
+        o_ms, o_by = bound(st.flops, st.bytes_accessed, bf16)
+        check(o_ms <= 1e3 * mean, f"[roofline] {arch}'s step {mean:.3f} s, under its op-count "
+              f"bound {o_ms:.1f} ms")
+        say(f"[roofline] {arch} train step (global batch {gb} x {TRAIN_SEQ}, {TRAIN_MICRO} "
+            f"microbatches, remat): op count {st.flops:.6e} FLOPs, {st.bytes_accessed:.6e} B "
+            f"(meta tensors); model_flops_for {mf:.6e} (useful/op-count {mf / st.flops:.4f}), "
+            f"train_flops {tf:.6e} (useful/op-count {tf / st.flops:.4f}); op-count bound "
+            f"{o_ms:.1f} ms ({o_by}) against the train phase's {1e3 * mean:.1f} ms a step: share "
+            f"{o_ms / (1e3 * mean):.4f} [{card}]")
 
 
 def _leaves(tree):
@@ -2869,9 +3113,10 @@ def phase_sched(ctx) -> None:
 
     from repro_torch.core import device_sched as ds
     from repro_torch.core.lut import StepTimeLUT
-    from repro_torch.kernels.sched_scan.ops import fcfs_scan, slack_pack
+    from repro_torch.kernels.sched_scan.ops import fcfs_scan, slack_pack, work
     from repro_torch.kernels.sched_scan.ref import fcfs_scan_ref, slack_pack_ref
     from repro_torch.policies import SlackDecodeScheduler, UrgencyPrefillScheduler
+    from repro_torch.roofline.analysis import bound
     from repro_torch.sim.costmodel import PAPER_COST_MODEL
 
     dev, card = ctx["device"], ctx["card"]
@@ -2967,14 +3212,14 @@ def phase_sched(ctx) -> None:
         fcfs_scan_ref(*scan_args["fcfs"])
         slack_pack_ref(*scan_args["pack"])
 
-    nbytes = 4 * 3 * n + 4 + (4 + 1 + 1) * n + 4 * tab.numel() + 4 * (be.numel() + se.numel()) + 8
+    bound_ms, bound_by = bound(*work(n, tab.numel(), be.numel(), se.numel()), torch.float32)
     row = dict(
         name="sched_scan", route="cuda", source="src/repro_torch/kernels/csrc/sched_scan.cu",
         replaces="src/repro/core/jax_sched.py:44", max_abs_err=err,
         ms=_time_ms(both, iters=20, flush=flush_buf.zero_),
         device_ms=_time_ms(both, iters=20, flush=flush_buf.zero_, device_only=True),
         plain_ms=_time_ms(both_ref, iters=2, flush=flush_buf.zero_),
-        library_ms=None, **_bound(6 * n, nbytes, "torch.float32"),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
         shape=f"N={n} slots, LUT {tuple(tab.shape)}",
     )
     say(f"[sched] sched_scan (fcfs_scan + slack_pack, one block each) at n={n}: kernels "
@@ -2998,7 +3243,6 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 6, 2048, 8, 2
 TRAIN_RUNS = (("minicpm-2b", 6e-4), ("zamba2-2.7b", 3e-4))
 TRAIN_PEAK_LIMIT = 72e9  # bytes of device memory; above it the global batch is halved
 TRAIN_LOSS_TOL, TRAIN_GRAD_REL = 2e-5, 1e-4  # card against CPU, f32, as the CPU tests
-PEAK_SOURCE = "989 TFLOP/s dense bf16, NVIDIA H100 SXM data sheet"
 
 
 def _tree_to(tree, device):
@@ -3151,30 +3395,6 @@ def _train_resume(ctx) -> None:
         f"[{ctx['card']}]")
 
 
-def _train_flops(cfg, params, tokens: int) -> float:
-    """Model FLOPs of one step at ``tokens`` tokens of TRAIN_SEQ, forward and
-    backward, no recompute counted: 6 N per token, N counting zamba2's
-    shared block once per use (count_params counts it once); causal
-    attention's 6 L H Dh S per token, L the attention layers (the shared
-    block's uses); and for the Mamba2 layers three times the SSD scan's
-    forward operations (`_ssd_work`: the forward once, the backward twice)."""
-    n = cfg.count_params()
-    attn = ssm = 0
-    if cfg.family == "hybrid":
-        attn, ssm = cfg.num_layers // cfg.hybrid_period, cfg.num_layers
-        n += (attn - 1) * sum(t.numel() for t in _leaves(params["shared_attn"]))
-    elif cfg.family == "ssm":
-        ssm = cfg.num_layers
-    else:
-        attn = cfg.num_layers
-    flops = tokens * (6 * n + 6 * attn * cfg.num_heads * cfg.resolved_head_dim * TRAIN_SEQ)
-    if ssm:
-        scan, _ = _ssd_work(tokens // TRAIN_SEQ, TRAIN_SEQ, cfg.ssm_num_heads, cfg.ssm_head_dim,
-                            cfg.ssm_state_dim, cfg.ssm_chunk, 2)
-        flops += 3 * ssm * scan
-    return flops
-
-
 def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
     """``arch`` whole in bf16 (random weights from seed 0): TRAIN_STEPS AdamW
     steps at ``global_batch`` x TRAIN_SEQ tokens, TRAIN_MICRO microbatches,
@@ -3185,6 +3405,8 @@ def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.training.data import DataConfig, SyntheticDataset
+    from repro_torch.roofline.analysis import train_flops
+    from repro_torch.roofline.hw import H100, SOURCE
     from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_step import make_train_step
 
@@ -3212,7 +3434,7 @@ def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
                                                      stable_steps=TRAIN_STEPS, decay_steps=1),
                               n_micro=TRAIN_MICRO)
     tokens = global_batch * TRAIN_SEQ
-    flops = _train_flops(cfg, params, tokens)
+    flops = train_flops(cfg, params, tokens, TRAIN_SEQ)
     want = _train_launches_per_step(cfg, TRAIN_MICRO)
     torch.cuda.reset_peak_memory_stats()
     _zero_train_launches()
@@ -3234,7 +3456,8 @@ def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
         out["gnorm"].append(gnorm)
         say(f"[train] {cfg.name} step {i}: loss {loss:.4f} grad_norm {gnorm:.4f} lr {lr_i:.3e}; "
             f"{dt:.3f} s, {tokens / dt:.0f} tokens/s, model FLOPs {flops / dt / 1e12:.1f} "
-            f"TFLOP/s = {flops / dt / 989e12:.4f} of the peak ({PEAK_SOURCE}); kernel launches "
+            f"TFLOP/s = {flops / dt / H100.peak_flops_bf16:.4f} of the peak "
+            f"({H100.peak_flops_bf16 / 1e12:.0f} TFLOP/s dense bf16, {SOURCE}); kernel launches "
             f"{launched}; peak memory {peak / 1e9:.2f} GB [{ctx['card']}]")
         check(all(map(math.isfinite, (loss, gnorm))), f"[train] {cfg.name} step {i}: loss "
               f"{loss}, grad norm {gnorm}")
@@ -3301,6 +3524,8 @@ def _train_run(ctx, arch: str, lr: float) -> None:
     the checks ask, and the run's readings are printed."""
     import torch
 
+    from repro_torch.roofline.hw import H100, SOURCE
+
     _free()
     gb = TRAIN_BATCH
     r = _train_full(ctx, arch, lr, gb)
@@ -3318,6 +3543,7 @@ def _train_run(ctx, arch: str, lr: float) -> None:
           f"{losses[0]} to {r['first_after']} over {TRAIN_STEPS} steps")
     steady = r["step_s"][1:]
     mean = sum(steady) / len(steady)
+    ctx.setdefault("train_steps", {})[arch] = (gb, mean)
     launches = ctx.setdefault("launches", {})
     if arch == "minicpm-2b":
         launches["prefill_attention_bwd"] = r["launches"]["prefill_bwd"]
@@ -3329,7 +3555,8 @@ def _train_run(ctx, arch: str, lr: float) -> None:
         f"{r['first_after']:.4f} after training); grad norms "
         f"{', '.join(f'{g:.4f}' for g in r['gnorm'])}; steps 1-{TRAIN_STEPS - 1} mean "
         f"{mean:.3f} s, {r['tokens'] / mean:.0f} tokens/s, model FLOPs {r['flops']:.4e} a step "
-        f"(`_train_flops`), share {r['flops'] / mean / 989e12:.4f} of the peak ({PEAK_SOURCE}); "
+        f"(`roofline.analysis.train_flops`), share {r['flops'] / mean / H100.peak_flops_bf16:.4f}"
+        f" of the peak ({H100.peak_flops_bf16 / 1e12:.0f} TFLOP/s dense bf16, {SOURCE}); "
         f"first step {r['step_s'][0]:.3f} s; peak memory {max(r['peak']) / 1e9:.2f} GB "
         f"({torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB on the card); kernel "
         f"launches over the {TRAIN_STEPS} steps {r['launches']} ({r['want']} a step) "
@@ -3369,8 +3596,8 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         for phase in (phase_device, phase_build, phase_kernels, phase_train, phase_serve,
-                      phase_fleet, phase_eval, phase_parity, phase_ssm, phase_families,
-                      phase_encdec, phase_sched):
+                      phase_roofline, phase_fleet, phase_eval, phase_parity, phase_ssm,
+                      phase_families, phase_encdec, phase_sched):
             t0 = time.perf_counter()
             phase(ctx)
             name = phase.__name__.removeprefix("phase_")
@@ -3378,6 +3605,10 @@ def main() -> int:
     except SmokeFailure as e:
         say(f"FAIL: {e}")
         return 1
+    finally:
+        if "report" in ctx:  # the run ended before the roofline phase read it
+            ctx["report"].kill()
+            ctx["report"].communicate()
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     rows = ctx["kernel_rows"]
     for r in rows:

@@ -1,5 +1,6 @@
 """Model configuration schema (a copy of ``repro.configs.base``; of the
-derived counts, those the model code and the parameter counts read).
+derived counts, those the model code, the parameter counts and the
+roofline's shape cells read).
 
 Every assigned architecture is expressed as a ``ModelConfig``, a frozen
 dataclass, so the port reads the same architectures as the reference.
@@ -77,8 +78,21 @@ class ModelConfig:
         return 0
 
     @property
+    def q_per_kv(self) -> int:
+        return max(1, self.num_heads // max(1, self.num_kv_heads))
+
+    @property
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic (SSM/hybrid) archs run the long_500k shape."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def ssm_d_inner(self) -> int:

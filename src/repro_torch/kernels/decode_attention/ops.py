@@ -8,12 +8,16 @@ V; it reads only the rows below ``kv_len``. It splits the KV axis into
 fixed splits of `SPLIT_ROWS` rows, one block each, whose f32 partials go to
 scratch allocated here and are merged by a second kernel in the same C call
 (the kernel source says more).
+
+`work` is the operations and bytes of one call, what the kernel's bound
+counts (`roofline.analysis.bound`); while a count of `roofline.op_stats`
+is active the wrapper adds it and runs its own path uncounted.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +32,7 @@ from repro_torch.kernels.checks import (
     stream_ptr,
 )
 from repro_torch.kernels.decode_attention.ref import SPLIT_ROWS, decode_attention_ref
+from repro_torch.roofline import op_stats
 
 _K = "decode_attention"
 MAX_Q_PER_KV = 16  # query heads per KV head one block holds
@@ -49,6 +54,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def work(b: int, hq: int, hkv: int, dh: int, tot: int, esize: int = 2) -> Tuple[int, int]:
+    """(operations, bytes) of one call over ``tot`` cache rows in all (the
+    sum of kv_len): 4 Hq Dh per row (q.k and p.v); the K and V rows read,
+    q and the output, once each, in elements of ``esize`` bytes, and
+    kv_len."""
+    flops = 4 * hq * dh * tot
+    nbytes = esize * (2 * tot * hkv * dh + 2 * b * hq * dh) + 4 * b
+    return flops, nbytes
+
+
+def _work_of(q, k, kv_len) -> Tuple[int, int]:
+    """`work` at these inputs; on meta tensors every lane's kv_len the
+    cache's length."""
+    b, hq, dh = q.shape
+    tot = b * k.shape[1] if kv_len.is_meta else int(kv_len.long().sum())
+    return work(b, hq, k.shape[2], dh, tot, q.element_size())
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, Hq, Dh)
     k: torch.Tensor,  # (B, S, Hkv, Dh)
@@ -59,6 +82,12 @@ def decode_attention(
     logit_cap: float = 0.0,
 ) -> torch.Tensor:
     """One query token per sequence over its KV cache: (B,Hq,Dh) -> (B,Hq,Dh)."""
+    if op_stats.ACTIVE is not None:
+        with op_stats.kernel(_K, lambda: _work_of(q, k, kv_len)):
+            if q.is_meta:
+                return torch.empty_like(q)
+            return op_stats.dense(decode_attention(q, k, v, kv_len, scale=scale,
+                                                   logit_cap=logit_cap))
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len, scale=scale, logit_cap=logit_cap)
     check_no_grad(_K, "decode attention serves; training attends through prefill_attention",

@@ -21,6 +21,11 @@ serving path (no grad) passes no log-sum-exp and launches exactly what it
 did before. The reference cannot differentiate its Pallas kernel at all
 (``pallas_call`` has no transpose rule) and trains on its plain attention;
 this is the port's counterpart of XLA's autodiff there.
+
+`work` and `bwd_work` are the operations and bytes of one call, what the
+kernels' bounds count (`roofline.analysis.bound`); while a count of
+`roofline.op_stats` is active each wrapper adds its work and runs its own
+path uncounted.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from repro_torch.kernels.prefill_attention.ref import (
     prefill_attention_lse,
     prefill_attention_ref,
 )
+from repro_torch.roofline import op_stats
 
 _K = "prefill_attention"
 _KB = "prefill_attention_bwd"
@@ -58,6 +64,45 @@ _ENTRY = {torch.bfloat16: "repro_prefill_attention_bf16",
 # tolerance); the kernel source says what bounds each
 _BWD_ENTRY = {torch.bfloat16: "repro_prefill_attention_bwd_bf16",
               torch.float32: "repro_prefill_attention_bwd_f32"}
+
+
+def visible_rows(q_pos: torch.Tensor, kv_len: torch.Tensor, skv: int) -> Tuple[int, int]:
+    """(visible, kv_rows): the (query, key) pairs a call attends over, and
+    the K/V rows it reads, from the data; on meta tensors (no data) the
+    canonical layout, every kv_len ``skv`` and the chunk at its end."""
+    if q_pos.is_meta:
+        b, sq = q_pos.shape
+        return b * (sq * (skv - sq) + sq * (sq + 1) // 2), b * skv
+    visible = int(torch.minimum(q_pos.long() + 1, kv_len.long()[:, None]).sum())
+    kv_rows = int(torch.minimum(q_pos.long().amax(1) + 1, kv_len.long()).sum())
+    return visible, kv_rows
+
+
+def work(b: int, sq: int, hq: int, hkv: int, dh: int, visible: int, kv_rows: int,
+         esize: int = 2) -> Tuple[int, int]:
+    """(operations, bytes) of one forward call: 4 Hq Dh per visible pair
+    (q.k and p.v); q and the output, the K and V rows read, once each, in
+    elements of ``esize`` bytes, and q_pos and kv_len."""
+    flops = 4 * hq * dh * visible
+    nbytes = esize * (2 * b * sq * hq * dh + 2 * kv_rows * hkv * dh) + 4 * (b * sq + b)
+    return flops, nbytes
+
+
+def bwd_work(b: int, sq: int, skv: int, hq: int, hkv: int, dh: int, visible: int,
+             esize: int = 2) -> Tuple[int, int]:
+    """(operations, bytes) of one backward call: 5 products of 2 Hq Dh per
+    visible pair (S, dP, dV, dK, dQ); q, out, dO and dq, k, v, dk and dv
+    once each, the f32 log-sum-exp, q_pos and kv_len."""
+    flops = 5 * 2 * hq * dh * visible
+    nbytes = (esize * (4 * b * sq * hq * dh + 4 * b * skv * hkv * dh) + 4 * b * hq * sq
+              + 4 * (b * sq + b))
+    return flops, nbytes
+
+
+def _work_of(q, k, q_pos, kv_len) -> Tuple[int, int]:
+    b, sq, hq, dh = q.shape
+    return work(b, sq, hq, k.shape[2], dh, *visible_rows(q_pos, kv_len, k.shape[1]),
+                q.element_size())
 
 
 def _entry(dtype: torch.dtype):
@@ -156,6 +201,16 @@ def prefill_attention_bwd(
     forward's ``out`` and ``lse``: the backward kernels (one C call, three
     launches: D = rowsum(dO * O), dK and dV, dQ), or their plain version on
     CPU tensors. Counts one launch per call."""
+    if op_stats.ACTIVE is not None:
+        b, sq, hq, dh = q.shape
+        skv = k.shape[1]
+        with op_stats.kernel(_KB, lambda: bwd_work(
+                b, sq, skv, hq, k.shape[2], dh, visible_rows(q_pos, kv_len, skv)[0],
+                q.element_size())):
+            if q.is_meta:
+                return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            return op_stats.dense(prefill_attention_bwd(
+                q, k, v, out, lse, dout, q_pos, kv_len, scale=scale, logit_cap=logit_cap))
     if q.device.type == "cpu":
         return prefill_attention_bwd_ref(q, k, v, out, lse, dout, q_pos, kv_len, scale=scale,
                                          logit_cap=logit_cap)
@@ -191,6 +246,13 @@ def prefill_attention_fwd(
     """(out, lse (B, Hq, Sq) f32): the forward `PrefillAttentionFn` saves for
     its backward, the forward kernel writing the row log-sum-exp beside the
     output on a CUDA tensor, the plain versions on a CPU tensor."""
+    if op_stats.ACTIVE is not None:
+        with op_stats.kernel(_K, lambda: _work_of(q, k, q_pos, kv_len)):
+            if q.is_meta:
+                return torch.empty_like(q), q.new_empty(
+                    (q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32)
+            return op_stats.dense(prefill_attention_fwd(q, k, v, q_pos, kv_len, scale=scale,
+                                                        logit_cap=logit_cap))
     if q.device.type == "cpu":
         return (prefill_attention_ref(q, k, v, q_pos, kv_len, scale=scale, logit_cap=logit_cap),
                 prefill_attention_lse(q, k, q_pos, kv_len, scale=scale, logit_cap=logit_cap))
@@ -233,6 +295,12 @@ def prefill_attention(
     and v through `PrefillAttentionFn`."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return PrefillAttentionFn.apply(q, k, v, q_pos, kv_len, scale, logit_cap)
+    if op_stats.ACTIVE is not None:
+        with op_stats.kernel(_K, lambda: _work_of(q, k, q_pos, kv_len)):
+            if q.is_meta:
+                return torch.empty_like(q)
+            return op_stats.dense(prefill_attention(q, k, v, q_pos, kv_len, scale=scale,
+                                                    logit_cap=logit_cap))
     if q.device.type == "cpu":
         return prefill_attention_ref(q, k, v, q_pos, kv_len, scale=scale, logit_cap=logit_cap)
     return _forward(q, k, v, q_pos, kv_len, scale, logit_cap, with_lse=False)[0]

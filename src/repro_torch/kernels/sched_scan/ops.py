@@ -7,6 +7,11 @@ On CPU tensors they call the plain versions (`ref.fcfs_scan_ref`,
 Each kernel is one thread block that walks the slots in order (the kernel
 source says why), and takes its scalars (``t0``, ``s_min``) as one-element
 tensors on the card, so a scheduling step needs no copy to the host.
+
+`work` is the operations and bytes of one decision's pair of calls, what
+the kernels' bound counts (`roofline.analysis.bound`), `fcfs_work` and
+`pack_work` its two parts; while a count of `roofline.op_stats` is active
+each wrapper adds its part and runs its own path uncounted.
 """
 from __future__ import annotations
 
@@ -25,11 +30,32 @@ from repro_torch.kernels.checks import (
     stream_ptr,
 )
 from repro_torch.kernels.sched_scan.ref import fcfs_scan_ref, slack_pack_ref
+from repro_torch.roofline import op_stats
 
 _K = "sched_scan"
 MAX_LUT = 4096  # NB * NS entries of the step-time table (MAX_LUT in the source)
 MAX_EDGES = 256  # bucket edges per axis
 _NO_GRAD = "a scheduling decision has no gradient"
+
+
+def fcfs_work(n: int) -> Tuple[int, int]:
+    """(operations, bytes) of `fcfs_scan` over ``n`` slots: a max and an add
+    per slot; the f32 arrivals, durations and finish times, and t0."""
+    return 2 * n, 4 * 3 * n + 4
+
+
+def pack_work(n: int, lut: int, nb: int, ns: int) -> Tuple[int, int]:
+    """(operations, bytes) of `slack_pack` over ``n`` slots, a table of
+    ``lut`` entries and ``nb`` + ``ns`` edges: the pair's other 4 per slot;
+    the int32 lengths, the flags in and out, the f32 table, the int32 edges,
+    s_min and the count."""
+    return 4 * n, (4 + 1 + 1) * n + 4 * lut + 4 * (nb + ns) + 8
+
+
+def work(n: int, lut: int, nb: int, ns: int) -> Tuple[int, int]:
+    """(operations, bytes) of one decision's `fcfs_scan` and `slack_pack`."""
+    (f1, b1), (f2, b2) = fcfs_work(n), pack_work(n, lut, nb, ns)
+    return f1 + f2, b1 + b2
 
 
 def _lib() -> ctypes.CDLL:
@@ -62,6 +88,9 @@ def _raise_on(err: int, name: str) -> None:
 def fcfs_scan(a_s: torch.Tensor, d_s: torch.Tensor, t0: torch.Tensor) -> torch.Tensor:
     """(N,) f32 arrivals and durations sorted by arrival, t0 a one-element
     f32 tensor -> (N,) f32 finish times ``t_i = max(t_{i-1}, a_i) + d_i``."""
+    if op_stats.ACTIVE is not None:
+        with op_stats.kernel(_K, lambda: fcfs_work(a_s.shape[0])):
+            return torch.empty_like(a_s) if a_s.is_meta else fcfs_scan(a_s, d_s, t0)
     if _on_cpu("fcfs_scan", a_s):
         return fcfs_scan_ref(a_s, d_s, t0)
     check_no_grad(f"{_K}.fcfs_scan", _NO_GRAD, a_s=a_s, d_s=d_s, t0=t0)
@@ -89,6 +118,13 @@ def slack_pack(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Algorithm 3's greedy walk: (per-slot flags (N,) bool, batch size (1,)
     int32)."""
+    if op_stats.ACTIVE is not None:
+        with op_stats.kernel(_K, lambda: pack_work(seq_s.shape[0], table.numel(),
+                                                   bsz_edges.numel(), seq_edges.numel())):
+            if seq_s.is_meta:
+                return (act_s.new_empty(seq_s.shape),
+                        seq_s.new_empty((1,), dtype=torch.int32))
+            return slack_pack(seq_s, act_s, s_min, table, bsz_edges, seq_edges)
     if _on_cpu("slack_pack", seq_s):
         return slack_pack_ref(seq_s, act_s, s_min, table, bsz_edges, seq_edges)
     check_no_grad(f"{_K}.slack_pack", _NO_GRAD, s_min=s_min, table=table)

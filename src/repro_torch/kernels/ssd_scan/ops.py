@@ -34,6 +34,12 @@ it did before. The reference trains on its plain scan under XLA's
 autodiff (its Pallas kernel has no gradient); this is the port's
 counterpart. On a CPU tensor `ssd` itself stays the plain version under
 autograd.
+
+`work` and `bwd_work` are the operations and bytes of one call, what the
+kernels' bounds count (`roofline.analysis.bound`); while a count of
+`roofline.op_stats` is active each wrapper adds its work and runs its own
+path uncounted, and `ssd` under grad takes `SSDScanFn` on every device, so
+that its backward is counted as the backward kernels.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from repro_torch.kernels.checks import (
     stream_ptr,
 )
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_chunked_bwd
+from repro_torch.roofline import op_stats
 
 _K = "ssd_scan"
 _KB = "ssd_scan_bwd"
@@ -88,6 +95,39 @@ TC_REL_LIMIT = 6e-3
 SSD_BWD_BF16_REL = 1e-2
 _HG_MAX = 8  # heads per ssd_chunk_bwd block, at most (the tensor-core kernel's HG_MAX)
 _sms: dict = {}  # SM count per card
+
+
+def _chunk_rows(l: int, chunk: int):
+    q = min(chunk, l)
+    return [q] * (l // q) + ([l % q] if l % q else [])
+
+
+def work(b: int, l: int, h: int, p: int, n: int, chunk: int, esize: int) -> Tuple[int, int]:
+    """(operations, bytes) of one SSD scan: per (batch, head, chunk of q
+    rows) 2 q^2 N (C B^T) + 2 q^2 P (scores . x dt) + 2 q N P (C state^T) +
+    2 q P N (state increment); x and y, dt, B and C once, the final state."""
+    rows = _chunk_rows(l, chunk)
+    flops = b * h * sum(2 * r * r * (n + p) + 4 * r * n * p for r in rows)
+    nbytes = esize * (2 * b * l * h * p + 2 * b * l * n) + 4 * (b * l * h + h + b * h * p * n)
+    return flops, nbytes
+
+
+def bwd_work(b: int, l: int, h: int, p: int, n: int, chunk: int, esize: int) -> Tuple[int, int]:
+    """(operations, bytes) of one SSD backward: per (batch, head, chunk of q
+    rows) 2 q^2 (2 P + 3 N) (G, dy.x^T, M^T dy, dG B, dG^T C) + 8 q P N (the
+    four state products); x, dy and dx, S_in (f32, one state per chunk), dt
+    and ddt, A and dA, B, C, dB and dC once, as training calls it (no initial
+    state, the final state unused)."""
+    rows = _chunk_rows(l, chunk)
+    flops = b * h * sum(2 * r * r * (2 * p + 3 * n) + 8 * r * p * n for r in rows)
+    nbytes = (esize * (3 * b * l * h * p + 4 * b * l * n) + 4 * b * len(rows) * h * p * n
+              + 4 * (2 * b * l * h + 2 * h))
+    return flops, nbytes
+
+
+def _work_args(x, Bm, chunk):
+    b, l, h, p = x.shape
+    return b, l, h, p, Bm.shape[-1], chunk, x.element_size()
 
 
 def route(dtype: torch.dtype, p: int, n: int, q: int) -> str:
@@ -238,6 +278,16 @@ def ssd_bwd(
     launch per call."""
     require(x.dim() == 4 and x.shape[1] >= 1, f"{_KB}: x must be (B, L, H, P) with L >= 1")
     b, l, h, p = x.shape
+    if op_stats.ACTIVE is not None:
+        with op_stats.kernel(_KB, lambda: bwd_work(*_work_args(x, Bm, chunk))):
+            if x.is_meta:
+                f32 = dict(dtype=torch.float32)
+                return (torch.empty_like(x), x.new_empty((b, l, h), **f32),
+                        x.new_empty((h,), **f32), torch.empty_like(Bm), torch.empty_like(Cm),
+                        x.new_empty((b, h, p, Bm.shape[-1]), **f32) if with_dinit else None)
+            return op_stats.dense(ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, dfinal, chunk=chunk,
+                                          init_state=init_state, with_dinit=with_dinit,
+                                          kernel=kernel))
     q = min(chunk, l)
     if x.device.type == "cpu":
         out = ssd_chunked_bwd(x, dt, A, Bm, Cm, q, init_state, s_in, dy, dfinal)
@@ -291,6 +341,14 @@ def ssd_fwd(
     saves for its backward, the route's kernels writing the state at every
     chunk start on a CUDA tensor; on a CPU tensor the plain scan, and S_in
     None (the plain backward recomputes it)."""
+    if op_stats.ACTIVE is not None:
+        with op_stats.kernel(_K, lambda: work(*_work_args(x, Bm, chunk))):
+            if x.is_meta:
+                b, _, h, p = x.shape
+                return (torch.empty_like(x),
+                        x.new_empty((b, h, p, Bm.shape[-1]), dtype=torch.float32), None)
+            return op_stats.dense(ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
+                                          kernel=kernel))
     if x.device.type == "cpu":
         y, fs = ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None], min(chunk, x.shape[1]),
                             init_state)
@@ -322,6 +380,10 @@ class SSDScanFn(torch.autograd.Function):
         return dx, ddt, dA, dB, dC, dinit, None, None
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def ssd(
     x: torch.Tensor,  # (B, L, H, P)
     dt: torch.Tensor,  # (B, L, H) f32, post-softplus
@@ -339,11 +401,20 @@ def ssd(
     route (to time one against the other); a route that cannot take the
     call raises."""
     require(x.dim() == 4 and x.shape[1] >= 1, f"{_K}: x must be (B, L, H, P) with L >= 1")
+    if op_stats.ACTIVE is not None:
+        if _needs_grad(x, dt, A, Bm, Cm, init_state):
+            return SSDScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk, kernel)
+        with op_stats.kernel(_K, lambda: work(*_work_args(x, Bm, chunk))):
+            if x.is_meta:
+                b, _, h, p = x.shape
+                return (torch.empty_like(x),
+                        x.new_empty((b, h, p, Bm.shape[-1]), dtype=torch.float32))
+            return op_stats.dense(ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
+                                      kernel=kernel))
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None], min(chunk, x.shape[1]),
                            init_state)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, dt, A, Bm, Cm, init_state)):
+    if _needs_grad(x, dt, A, Bm, Cm, init_state):
         return SSDScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk, kernel)
     y, final_state, _ = _forward(x, dt, A, Bm, Cm, chunk, init_state, kernel, with_s_in=False)
     return y, final_state

@@ -84,8 +84,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = "cuda") ->
     `torch.Generator` seeded with ``seed`` on ``device``."""
     _check(cfg)
     dev = resolve_device(device)
+    return param_tree(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+
+def param_tree(cfg: ModelConfig, gen: Optional[torch.Generator], dev: torch.device) -> Dict:
+    """The parameter tree on ``dev``, drawn from ``gen``: `init_params`'s
+    weights, or on the ``meta`` device (``gen`` None) their shapes and
+    dtypes alone (`Model.param_struct`)."""
+    _check(cfg)
     dtype = dtype_of(cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
 
     def norms(n, *names):

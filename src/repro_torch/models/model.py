@@ -12,6 +12,7 @@ of ``repro.models.model``).
   cache = model.init_cache(batch, max_len, device="cuda")   # zeros, allocated; the ring
                                                           # cache where cache_shapes picks it
   spec  = cache_struct(cfg, batch, max_len)                 # meta tensors only
+  tree  = model.param_struct()                              # meta tensors only
 """
 from __future__ import annotations
 
@@ -49,6 +50,15 @@ class Model:
         if self.cfg.is_encdec:
             return encdec.init_params(self.cfg, seed, device)
         return transformer.init_params(self.cfg, seed, device)
+
+    def param_struct(self) -> Dict:
+        """The parameter tree as tensors on the ``meta`` device: shapes and
+        dtypes, no allocation (the counterpart of JAX's ``eval_shape`` of
+        ``init``), built by the tree builder that `init` draws through."""
+        meta = torch.device("meta")
+        if self.cfg.is_encdec:
+            return encdec.param_tree(self.cfg, None, meta)
+        return transformer.param_tree(self.cfg, None, meta)
 
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = "cuda") -> Dict:
         dev = resolve_device(device)

@@ -1,6 +1,7 @@
 """Step-time cost model of the discrete-event simulator, also the serving
-session's KV-handoff pricing (a copy of ``repro.sim.costmodel`` without
-``TPUCostModel``, whose coefficients are TPU v5e's).
+session's KV-handoff pricing (a copy of ``repro.sim.costmodel``; in place
+of ``TPUCostModel``, whose coefficients are TPU v5e's, `ChipCostModel`
+derives them from a `roofline.hw.ChipSpec`, the H100 by default).
 
 Calibrated to the paper's measured numbers (MiniMax-M2.5, 4xH200 TP4):
   prefill:  8K -> 400.4 ms, 128K -> 8.8 s            (paper §2.2)
@@ -15,6 +16,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Sequence
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.roofline.hw import H100, ChipSpec
 
 @dataclass(frozen=True)
 class CalibratedCostModel:
@@ -82,6 +86,67 @@ class CalibratedCostModel:
     # ------------------------------------------------------------ transfer
     def transfer_time(self, n_tokens: int) -> float:
         return self.transfer_lat + n_tokens * self.kv_bytes_per_token / self.transfer_bw
+
+
+@dataclass(frozen=True)
+class ChipCostModel:
+    """Roofline-derived coefficients for a ModelConfig on ``chips`` chips of
+    ``hw`` (the reference's ``TPUCostModel`` on any `ChipSpec`).
+
+    decode:  d0 = active weight bytes / (chips * HBM_bw)   (weight read)
+             d2 = per-token KV bytes / (chips * HBM_bw)    (KV read, straggler)
+             d1 = small dispatch/sampling overhead
+    prefill: p1 = 2 * N_active / (chips * peak_flops)      (GEMM-bound)
+             p2 = attention flops coefficient
+    transfer: every chip-to-chip link of one chip (the reference: 4 ICI links)
+    """
+
+    cfg: ModelConfig
+    chips: int = 4
+    hw: ChipSpec = H100
+    mfu: float = 0.5  # achievable fraction for prefill GEMMs
+    membw_frac: float = 0.7  # achievable HBM fraction for decode
+
+    def _active_bytes(self) -> float:
+        return self.cfg.count_active_params() * 2.0  # bf16
+
+    def kv_bytes_per_token(self) -> float:
+        c = self.cfg
+        if c.family == "ssm":
+            return 0.0  # constant state, no per-token KV
+        per_layer = 2 * c.num_kv_heads * c.resolved_head_dim * 2.0
+        n_attn = c.num_layers if c.family != "hybrid" else c.num_layers // max(1, c.hybrid_period)
+        return per_layer * n_attn
+
+    def to_calibrated(self) -> CalibratedCostModel:
+        c = self.cfg
+        bw = self.chips * self.hw.hbm_bw * self.membw_frac
+        flops = self.chips * self.hw.peak_flops_bf16 * self.mfu
+        n_act = c.count_active_params()
+        d0 = self._active_bytes() / bw
+        d2 = self.kv_bytes_per_token() / bw
+        p1 = 2.0 * n_act / flops
+        # attention quadratic term: 2 heads_flops per (q, kv) pair
+        if c.num_heads:
+            attn_per_pair = 4.0 * c.num_heads * c.resolved_head_dim * (
+                c.num_layers if c.family != "hybrid" else c.num_layers // max(1, c.hybrid_period)
+            )
+        else:
+            attn_per_pair = 0.0
+        p2 = attn_per_pair / flops
+        return CalibratedCostModel(
+            p0=0.005,
+            p1=p1,
+            p2=p2,
+            p_chunk=0.002,
+            d0=d0,
+            d1=2e-5,
+            d2=d2,
+            d3=0.0,
+            kv_bytes_per_token=self.kv_bytes_per_token(),
+            transfer_bw=self.hw.ici_link_bw * self.hw.ici_links,
+            transfer_lat=0.001,
+        )
 
 
 PAPER_COST_MODEL = CalibratedCostModel()

@@ -38,11 +38,14 @@ def _split_batch(batch: Dict, n_micro: int):
 
 def _value_and_grad(model: Model, params: Dict, batch: Dict) -> Tuple[torch.Tensor, Dict]:
     """(loss, grads in each parameter's dtype): the loss's gradient with
-    respect to aliases of the parameters (no copy)."""
+    respect to aliases of the parameters (no copy). A parameter the loss
+    does not use (the token embedding of a model fed embeddings, with its
+    own head) gets zeros, as under ``jax.grad``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss = model.loss(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads, strict=True)]
     return loss.detach(), tree_unflatten(params, grads)
 
 

@@ -1,7 +1,7 @@
 """The training slice of the port against ``repro.training`` and the JAX
 model's loss: parameter counts, the synthetic data bit for bit, the WSD
 schedule and AdamW within 1e-6, the loss within 2e-5 and every gradient
-leaf within 1e-4 in relative norm for seven smoke configs (f32, the port's
+leaf within 1e-4 in relative norm for eight smoke configs (f32, the port's
 ``attn_impl`` "auto" and "pallas" against JAX's "auto"; labels with -100),
 three train steps at 1 and 2 microbatches within 2e-4, checkpoints that
 cross between the packages bit for bit, and the launcher.
@@ -39,8 +39,9 @@ from repro_torch.training import train_step as tts  # noqa: E402
 LOSS_TOL = 2e-5
 GRAD_REL = 1e-4
 STEP_TOL = dict(rtol=2e-4, atol=2e-4)
-# the seven smoke configs of the slice, with a sequence length each: gemma2's
-# window (32) must bind; the moe groups (32 tokens) must fill
+# the eight smoke configs of the slice, with a sequence length each: gemma2's
+# window (32) must bind; the moe groups (32 tokens) must fill; chameleon is fed
+# embeddings, so its token embedding is unused and its gradient zero (C9)
 TRAIN_ARCHS = {
     "llama3-8b-smoke": 24,
     "minicpm-2b-smoke": 24,
@@ -49,6 +50,7 @@ TRAIN_ARCHS = {
     "mamba2-130m-smoke": 32,
     "zamba2-2.7b-smoke": 32,
     "seamless-m4t-medium-smoke": 32,
+    "chameleon-34b-smoke": 24,
 }
 _JAX = {}
 
