@@ -101,6 +101,17 @@ Phases, each printed on its own lines:
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
            policies, slot then paged KV; both attention kernels must launch
+  dist     distribution on a DeviceMesh: a one-rank NCCL group and a ("data",
+           "model") mesh of (1, 1) on the card; llama3-8b at full width and
+           depth in bf16 (the serve phase's weights), placed by
+           param_pspecs(mode="serve") and its cache by cache_pspecs:
+           Model.prefill of 4 prompts (2048/1536/700/130, right-padded) and 32
+           greedy Model.decode steps on DTensors (the kernels through
+           local_map) and on plain tensors; tokens identical, logits within
+           DIST_LOGIT_TOL, both attention kernels launched as often on both
+           routes (32 and 1024), no call on a plain attention path; the
+           decode step time of both routes (DTensor's host cost). The group
+           is destroyed when the phase ends
   roofline every bound from one place (`roofline.analysis.bound` on
            `roofline.hw.H100`, the kernels' `work()`): the report over every
            arch x shape cell at full size on meta tensors (32 counted, the 8
@@ -209,6 +220,15 @@ Phases, each printed on its own lines:
            criteria, the sched_scan kernels bit for bit against their plain
            versions, each decision timed beside the host policy's (no winner
            asserted)
+  dryrun   the port's dry-run, started at the train phase as a subprocess on
+           the host's CPU (meta tensors under PyTorch's fake process group of
+           512 ranks; one process group per process, so never this one):
+           llama3-8b's train_4k and decode_32k cells on the 16x16 mesh and the
+           elastic re-mesh (16x16, 8x16, 4x16). Each cell's status, argument
+           bytes per rank, collective bytes per chip by kind and mesh dim with
+           their count, fallbacks and RooflineTerms' dominant term and step
+           bound are printed as counts, not device numbers; a cell with status
+           error fails the run
 
 Every phase runs on every call. It imports nothing of JAX or of the JAX
 package, exits non-zero when there is no card or when run outside the
@@ -1608,8 +1628,224 @@ def phase_serve(ctx) -> None:
     say(f"[serve] paged (page_size=64) tokens equal to slot tokens for {same}/{len(slot_out)} "
         "requests (bf16: argmax ties may flip between batch shapes; f32 parity is checked "
         "in the parity phase)")
-    del params
+    ctx["llama3_params"] = params  # the dist phase's weights
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------- dist
+DIST_PROMPTS = (2048, 1536, 700, 130)  # right-padded to the longest, with valid_len
+DIST_MAX_LEN, DIST_STEPS = 2080, 32
+DIST_LOGIT_TOL = 2e-2  # bf16 logits of the mesh route against the plain route
+DRYRUN_TIMEOUT = 900  # seconds the dry-run may still take when the dryrun phase reads it
+DRYRUN_CELLS = ("train_4k", "decode_32k")
+
+
+def _start_dryrun(ctx) -> None:
+    """Start the port's dry-run of llama3-8b (train_4k and decode_32k on the
+    16x16 mesh) and its elastic re-mesh on the host's CPU (meta tensors under
+    the fake process group, which cannot share this process with the card's
+    group), beside the phases; the dryrun phase reads it, and `main` stops it
+    if the run ends first."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    py = f'"{sys.executable}"'
+    cmds = [f"{py} -m repro_torch.launch.dryrun --arch llama3-8b --shape {s} --mesh single"
+            for s in DRYRUN_CELLS] + [f"{py} -m repro_torch.launch.elastic --arch llama3-8b"]
+    ctx["dryrun"] = subprocess.Popen(["sh", "-c", " && ".join(cmds)], cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _spied_plain_paths():
+    """Wrap the attention's plain paths (naive, blockwise) in `models.layers`
+    so that each call is counted: {name: calls}, and the undo."""
+    from repro_torch.models import layers
+
+    calls = {"naive_attention": 0, "blockwise_attention": 0}
+    saved = {name: getattr(layers, name) for name in calls}
+
+    def spy(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    for name in calls:
+        setattr(layers, name, spy(name))
+    return calls, lambda: [setattr(layers, n, f) for n, f in saved.items()]
+
+
+def _dist_route(model, params, cache, inputs, valid, mesh=None, plan=None):
+    """Model.prefill of the prompts, the handoff, DIST_STEPS greedy
+    Model.decode steps: (tokens (B, steps), logit rows, step times, kernel
+    launches, plain-path calls), on DTensors under the activation context
+    when ``mesh`` is given."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.dist.act_sharding import use_activation_sharding
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.prefill_attention.ops import prefill_attention
+    from repro_torch.models.transformer import handoff
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    plain, undo = _spied_plain_paths()
+    scope = (use_activation_sharding(mesh, plan.batch_axes) if mesh is not None
+             else contextlib.nullcontext())
+    prefill_attention.launches = decode_attention.launches = 0  # this route's run
+    try:
+        with scope:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, kv = model.prefill(params, dict(inputs=inputs), valid_len=valid)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            cache = handoff(model.cfg, kv, cache)
+            del kv
+            rows, toks, step_s = [full(logits)], [], []
+            tok, pos = torch.argmax(rows[0], -1), valid.clone()
+            for _ in range(DIST_STEPS):
+                t0 = time.perf_counter()
+                logits, cache = model.decode(params, tok[:, None], pos, cache)
+                rows.append(full(logits))
+                tok = torch.argmax(rows[-1], -1)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                toks.append(tok)
+                pos = pos + 1
+    finally:
+        undo()
+    launches = {"prefill_attention": prefill_attention.launches,
+                "decode_attention": decode_attention.launches}
+    return torch.stack(toks, 1), rows, prefill_s, step_s, launches, dict(plain)
+
+
+def phase_dist(ctx) -> None:
+    """llama3-8b at full width and depth in bf16 on a one-rank NCCL group and a
+    ("data", "model") mesh of (1, 1) on the card: the parameters placed by
+    the serve plan, the cache by the cache plan; prefill of 4 prompts and 32
+    greedy decode steps on DTensors (the kernels through local_map) and on
+    plain tensors. Tokens identical, logits within DIST_LOGIT_TOL, the same
+    kernel launches on both routes, no call on a plain attention path; the
+    decode step time of both routes (DTensor's host cost)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import ShardingPlan, cache_pspecs, distribute, param_pspecs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    dev, card = ctx["device"], ctx["card"]
+    cfg = get_config("llama3-8b")  # full width and depth, bf16 (the config's own dtype)
+    model = build_model(cfg)
+    params = ctx.pop("llama3_params", None)
+    if params is None:
+        params = model.init(seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    toks = np.zeros((len(DIST_PROMPTS), max(DIST_PROMPTS)), np.int64)
+    for i, n in enumerate(DIST_PROMPTS):
+        toks[i, :n] = rng.integers(2, cfg.vocab_size, n)
+    inputs = torch.tensor(toks, device=dev)
+    valid = torch.tensor(DIST_PROMPTS, dtype=torch.int32, device=dev)
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                                rank=0, device_id=torch.device("cuda", 0))
+    except Exception as e:
+        raise SmokeFailure(f"[dist] the NCCL group did not start: {type(e).__name__}: {e}") from e
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        plan = ShardingPlan(mesh, mode="serve")
+        dparams = distribute(params, param_pspecs(cfg, params, plan), mesh)
+        say(f"[dist] {cfg.name} bf16 on a one-rank NCCL group, mesh {tuple(mesh.shape)} "
+            f"{mesh.mesh_dim_names} on cuda: {len(plan.fallbacks)} fallbacks; parameters by "
+            "param_pspecs(mode='serve'), the cache by cache_pspecs [" + card + "]")
+        got = {}
+        for label, p, m in (("mesh", dparams, mesh), ("plain", params, None)):
+            c = model.init_cache(len(DIST_PROMPTS), DIST_MAX_LEN, device=dev)
+            if m is not None:
+                c = distribute(c, cache_pspecs(cfg, c, plan), m)
+            got[label] = _dist_route(model, p, c, inputs, valid, m, plan)
+            del c
+            torch.cuda.empty_cache()
+        (mt, mrows, mpre, mstep, mlaunch, mplain) = got["mesh"]
+        (pt, prows, ppre, pstep, plaunch, pplain) = got["plain"]
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(mrows, prows,
+                                                                                 strict=True))
+        want = {"prefill_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * DIST_STEPS}
+        check(torch.equal(mt, pt), f"[dist] the mesh route's tokens differ from the plain "
+              f"route's: {mt[:, :8].tolist()} vs {pt[:, :8].tolist()}")
+        check(err <= DIST_LOGIT_TOL, f"[dist] logits differ by {err:.3e} > {DIST_LOGIT_TOL}")
+        check(mlaunch == plaunch == want, f"[dist] launches mesh {mlaunch}, plain {plaunch}, "
+              f"expected {want}")
+        check(not any(mplain.values()) and not any(pplain.values()),
+              f"[dist] a call took a plain attention path: mesh {mplain}, plain {pplain}")
+        check(all(bool(torch.isfinite(r).all()) for r in mrows), "[dist] a logit row not finite")
+        for label, pre, step in (("mesh", mpre, mstep), ("plain", ppre, pstep)):
+            median = sorted(step)[len(step) // 2]
+            say(f"[dist] {label} route: prefill of {len(DIST_PROMPTS)} prompts "
+                f"{list(DIST_PROMPTS)} {1e3 * pre:.2f} ms; {DIST_STEPS} greedy decode steps mean "
+                f"{1e3 * sum(step) / len(step):.2f} ms (median {1e3 * median:.2f} ms, first "
+                f"{1e3 * step[0]:.2f} ms) [{card}]")
+        say(f"[dist] tokens identical ({tuple(mt.shape)}), logits max |diff| {err:.3e} <= "
+            f"{DIST_LOGIT_TOL}, launches {mlaunch} on both routes, plain-path calls {mplain}; "
+            f"decode step mesh/plain {sum(mstep) / sum(pstep):.3f} (DTensor's host cost) [{card}]")
+    finally:
+        dist.destroy_process_group()
+    del params, dparams
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(ctx) -> None:
+    """The dry-run started at the train phase: llama3-8b's train_4k and
+    decode_32k cells on the 16x16 mesh and the elastic re-mesh, counted on
+    meta tensors on the host's CPU. Each cell's status, per-rank argument
+    bytes, collective bytes per chip by kind and their count, fallbacks and
+    roofline terms; a cell with status error fails the run."""
+    proc = ctx.pop("dryrun")
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"[dryrun] the dry-run ran past {DRYRUN_TIMEOUT} s more") from None
+    card = ctx["card"]
+    check(proc.returncode == 0, f"[dryrun] exited {proc.returncode}: {out[-3000:]}")
+    note = "counts on meta tensors under the fake process group of 512 ranks, not device numbers"
+    for shape in DRYRUN_CELLS:
+        path = ROOT / "artifacts" / "dryrun_torch" / f"llama3-8b__{shape}__single.json"
+        res = json.loads(path.read_text())
+        check(res["status"] == "ok", f"[dryrun] llama3-8b {shape}: {res['status']} "
+              f"{res.get('error', '')}")
+        coll, r = res["collectives"], res["roofline"]
+        kinds = ", ".join(f"{k} {v:.6g} B" for k, v in coll.items()
+                          if k not in ("total", "count", "by_mesh_dim"))
+        dims = "; ".join(f"{d}: " + ", ".join(f"{k} {v['count']}x {v['bytes']:.6g} B"
+                                               for k, v in kinds_.items())
+                         for d, kinds_ in coll["by_mesh_dim"].items())
+        say(f"[dryrun] llama3-8b {shape} on 16x16 ({res['chips']} chips): {res['status']}; "
+            f"arguments {res['memory']['argument_bytes'] / 1e9:.3f} GB per rank; collectives per "
+            f"chip {coll['total']:.6g} B in {coll['count']} calls ({kinds or 'none'}; by mesh dim "
+            f"{dims or 'none'}); fallbacks {res['sharding_fallbacks']}; FLOPs {res['flops']:.6g} "
+            f"global; dominant {r['dominant']}, step bound {r['step_time_bound_s']:.6g} s on "
+            f"roofline.hw.H100 ({note}; counted in {res['wall_s']} s)")
+    for ln in out.splitlines():
+        if ln.startswith(("healthy", "degraded", "elastic")):
+            say(f"[dryrun] elastic {ln} ({note})")
+    check("elastic re-mesh: OK" in out, "[dryrun] the elastic re-mesh did not end OK")
+    say(f"[dryrun] {card} (the card played no part in these counts)")
 
 
 # ------------------------------------------------------------------- roofline
@@ -3510,7 +3746,9 @@ def _train_profile(step_fn, params, opt, ds, device) -> dict:
 def phase_train(ctx) -> None:
     """Training on the card: card-vs-CPU parity at smoke size, a
     bit-identical resume from a checkpoint, then minicpm-2b and zamba2-2.7b
-    whole."""
+    whole. It starts the dry-run beside it and the later phases (after the
+    kernels phase, whose host-timed columns it would share the CPU with)."""
+    _start_dryrun(ctx)  # the dryrun phase reads it
     _free()
     _train_parity(ctx)
     _train_resume(ctx)
@@ -3596,8 +3834,8 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         for phase in (phase_device, phase_build, phase_kernels, phase_train, phase_serve,
-                      phase_roofline, phase_fleet, phase_eval, phase_parity, phase_ssm,
-                      phase_families, phase_encdec, phase_sched):
+                      phase_dist, phase_roofline, phase_fleet, phase_eval, phase_parity,
+                      phase_ssm, phase_families, phase_encdec, phase_sched, phase_dryrun):
             t0 = time.perf_counter()
             phase(ctx)
             name = phase.__name__.removeprefix("phase_")
@@ -3606,9 +3844,10 @@ def main() -> int:
         say(f"FAIL: {e}")
         return 1
     finally:
-        if "report" in ctx:  # the run ended before the roofline phase read it
-            ctx["report"].kill()
-            ctx["report"].communicate()
+        for sub in ("report", "dryrun"):  # the run ended before its phase read it
+            if sub in ctx:
+                ctx[sub].kill()
+                ctx[sub].communicate()
     say(f"[total] {time.perf_counter() - t_start:.1f} s")
     rows = ctx["kernel_rows"]
     for r in rows:

@@ -28,6 +28,17 @@ def check_tensors(kernel: str, device: torch.device, rows: Sequence[str],
             raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
 
 
+def check_local(kernel: str, **tensors) -> None:
+    """A kernel reads its operands through their pointers, which a DTensor's
+    do not give (it holds one rank's shard): refuse one. A model on a mesh
+    hands the wrappers each rank's local tensors (`repro_torch.dist.dtensor`
+    lays them out for ``local_map``)."""
+    for name, t in tensors.items():
+        if type(t).__name__ == "DTensor":
+            raise TypeError(f"{kernel}: {name} is a DTensor; a kernel takes local tensors "
+                            "(send DTensor operands through local_map)")
+
+
 def check_shape(kernel: str, name: str, t: torch.Tensor, shape: Sequence[int]) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")

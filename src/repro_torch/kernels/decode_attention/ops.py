@@ -25,6 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.checks import (
     DTYPE_CODE,
     HEAD_DIMS,
+    check_local,
     check_no_grad,
     check_shape,
     check_tensors,
@@ -82,6 +83,7 @@ def decode_attention(
     logit_cap: float = 0.0,
 ) -> torch.Tensor:
     """One query token per sequence over its KV cache: (B,Hq,Dh) -> (B,Hq,Dh)."""
+    check_local(_K, q=q, k=k, v=v, kv_len=kv_len)
     if op_stats.ACTIVE is not None:
         with op_stats.kernel(_K, lambda: _work_of(q, k, kv_len)):
             if q.is_meta:

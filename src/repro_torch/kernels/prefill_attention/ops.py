@@ -38,6 +38,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import (
     HEAD_DIMS,
+    check_local,
     check_no_grad,
     check_shape,
     check_tensors,
@@ -201,6 +202,8 @@ def prefill_attention_bwd(
     forward's ``out`` and ``lse``: the backward kernels (one C call, three
     launches: D = rowsum(dO * O), dK and dV, dQ), or their plain version on
     CPU tensors. Counts one launch per call."""
+    check_local(_KB, q=q, k=k, v=v, out=out, lse=lse, dout=dout, q_pos=q_pos,
+                kv_len=kv_len)
     if op_stats.ACTIVE is not None:
         b, sq, hq, dh = q.shape
         skv = k.shape[1]
@@ -246,6 +249,7 @@ def prefill_attention_fwd(
     """(out, lse (B, Hq, Sq) f32): the forward `PrefillAttentionFn` saves for
     its backward, the forward kernel writing the row log-sum-exp beside the
     output on a CUDA tensor, the plain versions on a CPU tensor."""
+    check_local(_K, q=q, k=k, v=v, q_pos=q_pos, kv_len=kv_len)
     if op_stats.ACTIVE is not None:
         with op_stats.kernel(_K, lambda: _work_of(q, k, q_pos, kv_len)):
             if q.is_meta:
@@ -293,6 +297,7 @@ def prefill_attention(
     """Causal GQA attention of a query chunk over a KV prefix:
     (B,Sq,Hq,Dh) x (B,Skv,Hkv,Dh) -> (B,Sq,Hq,Dh); differentiable in q, k
     and v through `PrefillAttentionFn`."""
+    check_local(_K, q=q, k=k, v=v, q_pos=q_pos, kv_len=kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return PrefillAttentionFn.apply(q, k, v, q_pos, kv_len, scale, logit_cap)
     if op_stats.ACTIVE is not None:

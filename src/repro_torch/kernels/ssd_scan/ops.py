@@ -51,6 +51,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.checks import (
     DTYPE_CODE,
+    check_local,
     check_no_grad,
     check_shape,
     check_tensors,
@@ -276,6 +277,8 @@ def ssd_bwd(
     plain version on CPU tensors. dinit is None unless ``with_dinit``.
     ``kernel`` forces a route (to time one against the other). Counts one
     launch per call."""
+    check_local(_KB, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, s_in=s_in, dy=dy, dfinal=dfinal,
+                init_state=init_state)
     require(x.dim() == 4 and x.shape[1] >= 1, f"{_KB}: x must be (B, L, H, P) with L >= 1")
     b, l, h, p = x.shape
     if op_stats.ACTIVE is not None:
@@ -341,6 +344,7 @@ def ssd_fwd(
     saves for its backward, the route's kernels writing the state at every
     chunk start on a CUDA tensor; on a CPU tensor the plain scan, and S_in
     None (the plain backward recomputes it)."""
+    check_local(_K, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, init_state=init_state)
     if op_stats.ACTIVE is not None:
         with op_stats.kernel(_K, lambda: work(*_work_args(x, Bm, chunk))):
             if x.is_meta:
@@ -400,6 +404,7 @@ def ssd(
     card, autograd of the plain version on the CPU). ``kernel`` forces a
     route (to time one against the other); a route that cannot take the
     call raises."""
+    check_local(_K, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, init_state=init_state)
     require(x.dim() == 4 and x.shape[1] >= 1, f"{_K}: x must be (B, L, H, P) with L >= 1")
     if op_stats.ACTIVE is not None:
         if _needs_grad(x, dt, A, Bm, Cm, init_state):

@@ -48,6 +48,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.act_sharding import constrain_batch
+from repro_torch.dist.dtensor import is_dtensor, local_rows, split_heads
 from repro_torch.models.layers import (
     attention,
     dense_init,
@@ -58,8 +60,12 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.transformer import (
     _attn_qkv,
+    _last_rows,
+    _local_cache,
+    _meshed,
     _remat,
     _init_attn,
+    embed_tokens,
     _init_mlp,
     check_supported,
     layer_params,
@@ -134,6 +140,7 @@ def _valid(n: Optional[torch.Tensor], dev: torch.device) -> Optional[torch.Tenso
     return None if n is None else torch.as_tensor(n).to(device=dev, dtype=torch.int32)
 
 
+@_meshed
 def encode(
     params: Dict, src: torch.Tensor, cfg: ModelConfig, src_valid: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -141,7 +148,7 @@ def encode(
     RoPE on the encoder's own positions; keys at or past ``src_valid`` are
     masked."""
     _check(cfg)
-    x = src.to(dtype_of(cfg.dtype))
+    x = constrain_batch(src.to(dtype_of(cfg.dtype)))
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     src_valid = _valid(src_valid, x.device)
@@ -160,9 +167,24 @@ def _cross_kv(layer: Dict, enc_out: torch.Tensor, cfg: ModelConfig):
     RoPE, no norm."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = (enc_out @ layer["cross_attn"]["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (enc_out @ layer["cross_attn"]["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    k = split_heads(enc_out @ layer["cross_attn"]["wk"], (b, s, cfg.num_kv_heads, hd), 2)
+    v = split_heads(enc_out @ layer["cross_attn"]["wv"], (b, s, cfg.num_kv_heads, hd), 2)
     return k, v
+
+
+def _write_self(ck, cv, k, v, positions: torch.Tensor) -> None:
+    """Write each sequence's new self K/V row at its position, in place (on
+    a mesh, each rank its own rows); a position at or past the cache's end
+    writes nothing, as the reference's select-update does."""
+    if is_dtensor(ck):
+        positions = local_rows(positions, ck)
+    ck, cv, k, v, _ = _local_cache(ck, cv, k, v)
+    m = ck.shape[1]
+    pos = positions.long()
+    hit = (pos < m)[:, None, None]
+    rows, at = torch.arange(ck.shape[0], device=ck.device), pos.clamp(max=m - 1)
+    ck[rows, at] = torch.where(hit, k[:, 0], ck[rows, at])
+    cv[rows, at] = torch.where(hit, v[:, 0], cv[rows, at])
 
 
 def _dec_layer_apply(
@@ -192,18 +214,13 @@ def _dec_layer_apply(
         if s != 1:
             raise ValueError(f"a decoder layer over a cache takes one token, got {s}")
         ck, cv = self_kv
-        m = ck.shape[1]
-        pos = positions[:, 0].long()
-        hit = (pos < m)[:, None, None]
-        rows, at = torch.arange(b, device=h.device), pos.clamp(max=m - 1)
-        ck[rows, at] = torch.where(hit, k[:, 0], ck[rows, at])
-        cv[rows, at] = torch.where(hit, v[:, 0], cv[rows, at])
+        _write_self(ck, cv, k, v, positions[:, 0])
         a = attention(q, ck, cv, positions, tgt_valid, causal=True, impl=cfg.attn_impl)
         new_self = (ck, cv)
     h = h + a.reshape(b, s, -1) @ layer["self_attn"]["wo"]
 
     hn = rms_norm(h, layer["pre_cross_norm"], cfg.norm_eps)
-    qc = (hn @ layer["cross_attn"]["wq"]).reshape(b, s, cfg.num_heads, hd)
+    qc = split_heads(hn @ layer["cross_attn"]["wq"], (b, s, cfg.num_heads, hd), 2)
     a = attention(qc, cross_k, cross_v, positions, enc_valid, causal=False, impl=cfg.attn_impl)
     h = h + a.reshape(b, s, -1) @ layer["cross_attn"]["wo"]
     return h + _mlp(layer, h, cfg), new_self
@@ -213,6 +230,7 @@ def _dec_layer_apply(
 # Entry points
 # ----------------------------------------------------------------------------
 
+@_meshed
 def forward_train(params: Dict, src: torch.Tensor, tgt: torch.Tensor, cfg: ModelConfig):
     """Teacher-forced training logits (B, S_tgt, V) f32: encode ``src``, then
     every decoder layer over the whole target, each recomputed in the
@@ -224,7 +242,7 @@ def forward_train(params: Dict, src: torch.Tensor, tgt: torch.Tensor, cfg: Model
     keep their activations, which changes memory and not the result."""
     _check(cfg)
     enc_out = encode(params, src, cfg)
-    x = params["embed"][tgt]
+    x = constrain_batch(embed_tokens(params["embed"], tgt))
     b, s = tgt.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     for i in range(cfg.num_layers):
@@ -238,6 +256,7 @@ def forward_train(params: Dict, src: torch.Tensor, tgt: torch.Tensor, cfg: Model
     return logits_from_hidden(params, x, cfg)
 
 
+@_meshed
 def prefill_step(
     params: Dict,
     src: torch.Tensor,  # (B, S_src, d_model) frame embeddings
@@ -252,7 +271,7 @@ def prefill_step(
     Hkv, Dh)``."""
     _check(cfg)
     enc_out = encode(params, src, cfg, src_valid)
-    x = params["embed"][tgt]
+    x = constrain_batch(embed_tokens(params["embed"], tgt))
     b, s = tgt.shape
     dev = x.device
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
@@ -267,10 +286,11 @@ def prefill_step(
                                        tgt_valid)
         for name, t in zip(leaves, (sk, sv, ck, cv), strict=True):
             leaves[name].append(t)
-    last = x[torch.arange(b, device=dev), tgt_valid.long() - 1]
+    last = _last_rows(x, tgt_valid.long() - 1)
     return logits_from_hidden(params, last, cfg), {n: torch.stack(t) for n, t in leaves.items()}
 
 
+@_meshed
 def decode_step(
     params: Dict,
     tokens: torch.Tensor,  # (B, 1)
@@ -282,7 +302,7 @@ def decode_step(
     """Single-token decode. Returns (logits (B, V), cache with its self K/V
     written in place)."""
     _check(cfg)
-    x = params["embed"][tokens]
+    x = constrain_batch(embed_tokens(params["embed"], tokens))
     positions = positions.to(device=x.device, dtype=torch.int32)
     pos2 = positions[:, None]
     kv_valid = positions + 1

@@ -45,6 +45,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.dtensor import (
+    Layout,
+    batch_and_head_dims,
+    is_dtensor,
+    kernel_map,
+    to_placements,
+)
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.prefill_attention.ops import prefill_attention
 
@@ -232,6 +239,10 @@ def attention(
     docstring)."""
     if impl not in ("auto", "naive", "pallas", "blockwise"):
         raise NotImplementedError(f"attention impl {impl!r} is not ported yet")
+    if is_dtensor(q) or is_dtensor(k):
+        return _attention_on_mesh(
+            q, k, v, q_pos, kv_valid, q_seg, kv_seg,
+            dict(window=window, causal=causal, logit_cap=logit_cap, scale=scale, impl=impl))
     b, sq = q.shape[0], q.shape[1]
     skv = k.shape[1]
     if window and skv <= window:
@@ -261,6 +272,41 @@ def attention(
                                    causal=causal)
     mask = attention_mask(q_pos, skv, kv_valid, window, causal, q_seg, kv_seg)
     return naive_attention(q, k, v, mask, logit_cap, scale)
+
+
+def _attention_on_mesh(q, k, v, q_pos, kv_valid, q_seg, kv_seg, kw: dict):
+    """`attention` on DTensors: each rank attends over its own batch rows
+    and query heads through ``local_map``, taking the kernels or the plain
+    paths by the same rule on its local tensors. The batch stays split on
+    the mesh dims that split it; the heads on the mesh dim that splits the
+    queries' heads (or the keys'), K/V beside them where their heads divide
+    over it, else replicated, each rank taking the KV heads its queries read
+    (GQA: 8 KV heads on a 16-wide model axis), and their gradient summed
+    over that mesh dim. Under an op count (meta tensors) the call is counted
+    once at its global shapes (`dist.dtensor.kernel_map`)."""
+    b, hq, hkv = q.shape[0], q.shape[2], k.shape[2]
+    mesh, batch_dims, head_dim = batch_and_head_dims((q, 0, 2), (k, 0, 2), (v, 0, 2))
+    lay = Layout(mesh, b, batch_dims, head_dim, hq, hkv)
+    kv_head = None if lay.kv_whole else 2
+    qp, kvp = lay.of(0, 2), lay.of(0, kv_head)
+    rows = lay.of(0)
+    ops = [to_placements(q, mesh, qp), to_placements(k, mesh, kvp), to_placements(v, mesh, kvp),
+           to_placements(q_pos, mesh, rows), to_placements(kv_valid, mesh, rows),
+           to_placements(q_seg, mesh, rows), to_placements(kv_seg, mesh, rows)]
+    kv_slice = lay.kv_slice()
+
+    def counted(q, k, v, q_pos, kv_valid, q_seg, kv_seg):
+        return attention(q, k, v, q_pos, kv_valid, q_seg=q_seg, kv_seg=kv_seg, **kw)
+
+    def local(q, k, v, *rest):
+        if kv_slice is not None:
+            lo, hi = kv_slice
+            k, v = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
+        return counted(q, k, v, *rest)
+
+    kv_grad = lay.grad_of(0, kv_head, partial_head=lay.kv_whole)
+    return kernel_map(local, counted, mesh, ops, [qp, kv_grad, kv_grad, None, None, None, None],
+                      [(tuple(q.shape), q.dtype, qp)])
 
 
 # ----------------------------------------------------------------------------

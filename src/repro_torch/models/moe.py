@@ -10,15 +10,22 @@ takes part in routing, padding rows included, so they use up capacity
 exactly as in the reference. Dispatch, the expert products and combine are
 einsums (``torch.einsum``), which the reference also computes outside any
 kernel.
+
+On DTensors (a model on a mesh) the layer runs through ``local_map``
+(`_moe_on_mesh`): each rank routes its own rows, whole groups of them, and
+computes every expert on its slice of the expert width.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.dtensor import is_dtensor, kernel_map, to_placements
 from repro_torch.models.layers import act_fn, dense_init
 
 
@@ -57,11 +64,17 @@ def _route(x2: torch.Tensor, router: torch.Tensor, k: int):
 def moe_ffn(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
     """x: (..., d_model) -> (..., d_model). Flattens the leading dims into
     groups of ``min(moe_group_size, tokens)`` rows, the last padded."""
+    if is_dtensor(x):
+        return _moe_on_mesh(x, params, cfg)
+    return _moe_local(x, params, cfg, min(cfg.moe_group_size, math.prod(x.shape[:-1])))
+
+
+def _moe_local(x: torch.Tensor, params: Dict, cfg: ModelConfig, gs: int) -> torch.Tensor:
+    """`moe_ffn` on tensors, in groups of ``gs`` rows."""
     orig_shape = x.shape
     d = orig_shape[-1]
     x2 = x.reshape(-1, d)
     tokens = x2.shape[0]
-    gs = min(cfg.moe_group_size, tokens)
     ngroups = -(-tokens // gs)
     pad = ngroups * gs - tokens
     if pad:
@@ -94,6 +107,54 @@ def moe_ffn(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
     expert_out = torch.einsum("gecf,efd->gecd", g_act * u, params["w_down"])
     yg = torch.einsum("gsec,gecd->gsd", combine.to(xdtype), expert_out)
     return yg.reshape(ngroups * gs, d)[:tokens].reshape(orig_shape)
+
+
+def _moe_on_mesh(x, params: Dict, cfg: ModelConfig):
+    """`moe_ffn` on DTensors through ``local_map``. The rows stay split over
+    the batch mesh dims where each rank holds whole groups of the
+    reference's grouping (else every rank routes every row); the expert
+    width F is split over the mesh dim that splits ``w_gate``'s (the plan's
+    tensor-parallel axis), ``w_down`` laid out on the same F slices (the
+    plan splits it on d_model where d_model = heads x head_dim, so that is
+    a redistribution of the weight per call, which the collective count
+    shows), and each rank's output is its F slice's share of the sum
+    (Partial). Under an op count (meta tensors) the layer is counted once
+    at its global shapes."""
+    mesh = x.device_mesh
+    tokens = math.prod(x.shape[:-1])
+    gs = min(cfg.moe_group_size, tokens)
+    n, batch = 1, []
+    for j, p in enumerate(x.placements):
+        if p == Shard(0) and x.shape[0] % (n * mesh.shape[j]) == 0:
+            n *= mesh.shape[j]
+            batch.append(j)
+    if (tokens // n) % gs:
+        n, batch = 1, []  # a rank's rows would cut a group: keep the rows whole
+    fdim = next((j for j, p in enumerate(params["w_gate"].placements)
+                 if p == Shard(2) and j not in batch), None)
+
+    def place(batch_at=None, f_at=None, partial_batch=False, partial_f=False):
+        pl = [Replicate()] * mesh.ndim
+        for j in batch:
+            if partial_batch:
+                pl[j] = Partial()
+            elif batch_at is not None:
+                pl[j] = Shard(batch_at)
+        if fdim is not None and (f_at is not None or partial_f):
+            pl[fdim] = Partial() if partial_f else Shard(f_at)
+        return tuple(pl)
+
+    names = ("router", "w_gate", "w_up", "w_down")
+    xp, outp = place(0), place(0, partial_f=True)
+    wps = (place(), place(f_at=2), place(f_at=2), place(f_at=1))
+    ops = [to_placements(x, mesh, xp),
+           *(to_placements(params[k], mesh, p) for k, p in zip(names, wps, strict=True))]
+    grads = (place(0, partial_f=True), place(partial_batch=True, partial_f=True),
+             place(f_at=2, partial_batch=True), place(f_at=2, partial_batch=True),
+             place(f_at=1, partial_batch=True))
+    return kernel_map(lambda t, *w: _moe_local(t, dict(zip(names, w, strict=True)), cfg, gs),
+                      lambda t, *w: moe_ffn(t, dict(zip(names, w, strict=True)), cfg),
+                      mesh, ops, grads, [(tuple(x.shape), x.dtype, outp)])
 
 
 def moe_ffn_ref(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:

@@ -24,8 +24,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.dtensor import (
+    Layout,
+    batch_and_head_dims,
+    is_dtensor,
+    kernel_map,
+    to_placements,
+)
 from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.models.layers import dense_init, gated_rms_norm
 
@@ -117,13 +123,48 @@ def ssm_forward(
     A = -torch.exp(params["A_log"])
 
     init_state = init_cache["state"].float().contiguous() if init_cache is not None else None
-    y, final_state = ssd(xs.contiguous(), dt.contiguous(), A.contiguous(),
-                         bmat.contiguous(), cmat.contiguous(),
-                         chunk=cfg.ssm_chunk, init_state=init_state)
-    y = y + params["D"].float()[None, None, :, None] * xs.float()
-    y = y.reshape(b, l, di).to(x_in.dtype)
+    scan = _ssd_on_mesh if is_dtensor(xs) else _ssd_skip
+    y, final_state = scan(xs.contiguous(), dt.contiguous(), A.contiguous(),
+                          bmat.contiguous(), cmat.contiguous(), params["D"],
+                          chunk=cfg.ssm_chunk, init_state=init_state)
     y = gated_rms_norm(y, z, params["norm"], cfg.norm_eps)
     return y @ params["out_proj"], dict(conv=new_conv.to(x_in.dtype), state=final_state)
+
+
+def _ssd_skip(x, dt, A, Bm, Cm, D, *, chunk: int, init_state=None):
+    """The SSD scan and the D skip: (y (B, L, H*P) in x's dtype, final
+    state)."""
+    y, final_state = ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+    y = y + D.float()[None, None, :, None] * x.float()
+    return y.reshape(*x.shape[:2], -1).to(x.dtype), final_state
+
+
+def _ssd_on_mesh(x, dt, A, Bm, Cm, D, *, chunk: int, init_state=None):
+    """`_ssd_skip` on DTensors: each rank scans its own batch rows and heads
+    through ``local_map`` (the kernel on the card, the plain scan on the
+    CPU). The batch stays split where it is; the heads are split over the
+    first other mesh dim they divide over (a free slice of replicated
+    operands), B and C stay whole there, and their gradients (and A's and
+    D's over the batch) are summed over the ranks that read them. The skip
+    and the merge of heads run inside, so the gradient reaches them laid
+    out as the heads are. Under an op count (meta tensors) the call is
+    counted once at its global shapes."""
+    b, l, h, p = x.shape
+    n = Bm.shape[-1]
+    mesh, batch_dims, _ = batch_and_head_dims((x, 0, None), (dt, 0, None), (Bm, 0, None))
+    head = next((j for j in range(mesh.ndim) if j not in batch_dims), None)
+    lay = Layout(mesh, b, batch_dims, head, h, h)
+    xp, ap, bp, sp = lay.of(0, 2), lay.of(None, 0), lay.of(0), lay.of(0, 1)
+    ops = [to_placements(x, mesh, xp), to_placements(dt, mesh, xp), to_placements(A, mesh, ap),
+           to_placements(Bm, mesh, bp), to_placements(Cm, mesh, bp), to_placements(D, mesh, ap),
+           to_placements(init_state, mesh, sp)]
+    outs = [((b, l, h * p), x.dtype, xp), ((b, h, p, n), torch.float32, sp)]
+    a_grad, bc_grad = lay.grad_of(None, 0, partial_batch=True), lay.grad_of(0, partial_head=True)
+
+    def local(*ts):
+        return _ssd_skip(*ts[:6], chunk=chunk, init_state=ts[6])
+
+    return kernel_map(local, local, mesh, ops, [xp, xp, a_grad, bc_grad, bc_grad, a_grad, sp], outs)
 
 
 def ssm_decode_step(

@@ -34,13 +34,25 @@ is outside the ported slices and raises NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.act_sharding import constrain_batch
+from repro_torch.dist.dtensor import (
+    global_offset,
+    is_dtensor,
+    local_rows,
+    mixed,
+    split_heads,
+    to_placements,
+    vocab_lookup,
+)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import init_moe_params, moe_ffn
 from repro_torch.models.layers import (
@@ -213,9 +225,9 @@ def layer_params(layers: Dict, i) -> Dict:
 def _attn_qkv(p: Dict, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    q = split_heads(x @ p["wq"], (b, s, cfg.num_heads, hd), 2)
+    k = split_heads(x @ p["wk"], (b, s, cfg.num_kv_heads, hd), 2)
+    v = split_heads(x @ p["wv"], (b, s, cfg.num_kv_heads, hd), 2)
     if cfg.use_qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -252,24 +264,9 @@ def attn_block(
     else:
         ck, cv = kv_cache
         if s == 1:
-            # an indexed write at each row's position; the reference writes
-            # with a one-hot select over the whole cache because SPMD
-            # partitions a select but not a per-batch scatter, which one
-            # card does not need
-            rows = torch.arange(b, device=x.device)
-            pos = positions[:, 0]
-            ck[rows, pos] = k[:, 0]
-            cv[rows, pos] = v[:, 0]
+            _write_rows(ck, cv, k, v, positions[:, 0])
         else:
-            # each chunk at its true positions: rows past the cache end
-            # (padding of the last chunk) are dropped, never shifted back
-            # as the reference's clamped dynamic_update_slice does
-            m = ck.shape[1]
-            for i, st in enumerate(starts):
-                n = min(s, m - st)
-                if n > 0:
-                    ck[i, st : st + n] = k[i, :n]
-                    cv[i, st : st + n] = v[i, :n]
+            _write_chunks(ck, cv, k, v, starts)
         out = attention(
             q, ck, cv, positions, kv_valid,
             window=window, logit_cap=cfg.attn_logit_softcap, impl=cfg.attn_impl,
@@ -277,6 +274,70 @@ def attn_block(
         new_kv = (ck, cv)
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return out @ p["wo"], new_kv
+
+
+def _local_cache(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The cache leaves and the new K/V as this rank's local tensors, the
+    new K/V laid out as the cache is (a write into a DTensor cache is a
+    local write on every rank), and the rank's first batch row."""
+    if not is_dtensor(ck):
+        return ck, cv, k, v, 0
+    k, v = (to_placements(t, ck.device_mesh, ck.placements).to_local() for t in (k, v))
+    return ck.to_local(), cv.to_local(), k, v, global_offset(ck)[0]
+
+
+def _write_rows(ck, cv, k, v, idx: torch.Tensor) -> None:
+    """Write the one new row of each sequence at ``idx`` (B,), in place.
+    The reference writes with a one-hot select over the whole cache because
+    SPMD partitions a select but not a per-batch scatter; here each rank
+    writes its own rows."""
+    if is_dtensor(ck):
+        idx = local_rows(idx, ck)
+    ck, cv, k, v, _ = _local_cache(ck, cv, k, v)
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    ck[rows, idx] = k[:, 0]
+    cv[rows, idx] = v[:, 0]
+
+
+def _write_chunks(ck, cv, k, v, starts: Sequence[int]) -> None:
+    """Write each sequence's chunk at its true positions ``starts[i] ..``,
+    in place: rows past the cache end (padding of the last chunk) are
+    dropped, never shifted back as the reference's clamped
+    dynamic_update_slice does."""
+    ck, cv, k, v, first = _local_cache(ck, cv, k, v)
+    m, s = ck.shape[1], k.shape[1]
+    for i in range(ck.shape[0]):
+        st = starts[first + i]
+        n = min(s, m - st)
+        if n > 0:
+            ck[i, st : st + n] = k[i, :n]
+            cv[i, st : st + n] = v[i, :n]
+
+
+def _last_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row ``idx[b]`` of each sequence of ``x`` (B, S, D): (B, D). On a
+    DTensor a gather along the sequence, which keeps the batch split (an
+    indexed read would gather every rank's rows first)."""
+    if is_dtensor(x):
+        # only the batch and the features may stay split: a gather along a
+        # split sequence leaves a masked sum that DTensor cannot settle
+        keep = [p if p in (Shard(0), Shard(2)) else Replicate() for p in x.placements]
+        x = to_placements(x, x.device_mesh, keep)
+        return torch.gather(x, 1, idx.long()[:, None, None].expand(-1, 1, x.shape[-1]))[:, 0]
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def _meshed(fn):
+    """An entry point that also runs on DTensor parameters: under
+    ``implicit_replication`` there (`dist.dtensor.mixed`), so the plain
+    positions, masks and indices it builds take part as replicated."""
+
+    @functools.wraps(fn)
+    def wrapped(params, *args, **kwargs):
+        with mixed(params):
+            return fn(params, *args, **kwargs)
+
+    return wrapped
 
 
 def _ffn(layer: Dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -296,10 +357,19 @@ def _layer_window(cfg: ModelConfig, i: int) -> int:
     return cfg.sliding_window
 
 
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, functional: bool = False):
+    """Rows ``tokens`` of the embedding ``table`` (``F.embedding`` where
+    ``functional``, else indexing); on a DTensor table split on its vocab
+    dim, `dist.dtensor.vocab_lookup`."""
+    if is_dtensor(table) and Shard(0) in table.placements:
+        return vocab_lookup(table, tokens)
+    return torch.nn.functional.embedding(tokens, table) if functional else table[tokens]
+
+
 def _embed_inputs(params: Dict, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.input_mode == "embeddings":
         return inputs.to(dtype_of(cfg.dtype))
-    return params["embed"][inputs]
+    return embed_tokens(params["embed"], inputs)
 
 
 def logits_from_hidden(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -363,6 +433,7 @@ def _remat(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
+@_meshed
 def forward_train(
     params: Dict, inputs: torch.Tensor, cfg: ModelConfig, remat: bool = True
 ) -> torch.Tensor:
@@ -380,8 +451,8 @@ def forward_train(
     _check_decoder(cfg)
     # tokens through F.embedding rather than indexing: its backward on the card
     # sums each row's gradients without atomics, so a resumed run is bit-identical
-    x = (_embed_inputs(params, inputs, cfg) if cfg.input_mode == "embeddings"
-         else torch.nn.functional.embedding(inputs, params["embed"]))
+    x = constrain_batch(_embed_inputs(params, inputs, cfg) if cfg.input_mode == "embeddings"
+                        else embed_tokens(params["embed"], inputs, functional=True))
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     # each stacked weight unbound once: in the backward one stack per weight
@@ -414,6 +485,7 @@ def forward_train(
     return logits_from_hidden(params, x, cfg)
 
 
+@_meshed
 def prefill_step(
     params: Dict,
     inputs: torch.Tensor,  # (B, S) tokens or (B, S, d_model) embeddings
@@ -429,7 +501,7 @@ def prefill_step(
       hybrid: (dict(conv, state) stacked ``(ns, per, ...)``,
                (k, v) stacked ``(ns, B, S, Hkv, Dh)``)"""
     _check_decoder(cfg)
-    x = _embed_inputs(params, inputs, cfg)
+    x = constrain_batch(_embed_inputs(params, inputs, cfg))
     b, s = x.shape[0], x.shape[1]
     dev = x.device
     positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
@@ -467,10 +539,11 @@ def prefill_step(
             ks.append(k)
             vs.append(v)
         kv = (_stack_caches(blocks), (torch.stack(ks), torch.stack(vs)))
-    last = x[torch.arange(b, device=dev), valid_len.long() - 1]
+    last = _last_rows(x, valid_len.long() - 1)
     return logits_from_hidden(params, last, cfg), kv
 
 
+@_meshed
 def decode_step(
     params: Dict,
     tokens: torch.Tensor,  # (B, 1) int
@@ -480,7 +553,7 @@ def decode_step(
 ):
     """Single-token decode. Returns (logits (B, V), cache written in place)."""
     _check_decoder(cfg)
-    x = params["embed"][tokens]
+    x = constrain_batch(embed_tokens(params["embed"], tokens))
     positions = positions.to(device=x.device, dtype=torch.int32)
     pos2 = positions[:, None]
     kv_valid = positions + 1
@@ -510,6 +583,7 @@ def decode_step(
     return logits_from_hidden(params, x[:, 0], cfg), cache
 
 
+@_meshed
 def chunk_prefill_step(
     params: Dict,
     tokens: torch.Tensor,  # (B, C), one chunk per request, right-padded
@@ -535,7 +609,7 @@ def chunk_prefill_step(
         raise ValueError(f"{cfg.name}: chunked prefill into a ring cache (k_local/v_local of "
                          f"{cfg.sliding_window} rows) is not supported; keep max_len <= "
                          "sliding_window (ROADMAP C6)")
-    x = params["embed"][tokens]
+    x = constrain_batch(embed_tokens(params["embed"], tokens))
     b, c = tokens.shape
     dev = x.device
     starts = [int(s) for s in torch.as_tensor(start).reshape(-1).tolist()]
@@ -553,8 +627,7 @@ def chunk_prefill_step(
             window=_layer_window(cfg, i),
             kv_cache=(cache["k"][i], cache["v"][i]), kv_valid=kv_valid, starts=starts,
         )
-    last_idx = torch.tensor([max(n - 1, 0) for n in valids], device=dev)
-    last = x[torch.arange(b, device=dev), last_idx]
+    last = _last_rows(x, torch.tensor([max(n - 1, 0) for n in valids], device=dev))
     return logits_from_hidden(params, last, cfg), cache
 
 
@@ -577,7 +650,6 @@ def _decode_windowed(params: Dict, x: torch.Tensor, positions: torch.Tensor, cfg
     pos2 = positions[:, None]
     kv_valid = positions + 1
     ring_valid = torch.clamp(kv_valid, max=w)
-    rows = torch.arange(b, device=x.device)
     slot = positions.long() % w
     layers = params["layers"]
     for i in range(cfg.num_layers // 2):
@@ -586,8 +658,7 @@ def _decode_windowed(params: Dict, x: torch.Tensor, positions: torch.Tensor, cfg
         q, k, v = _attn_qkv(loc["attn"], rms_norm(x, loc["pre_attn_norm"], cfg.norm_eps),
                             pos2, cfg)
         ck, cv = cache["k_local"][i], cache["v_local"][i]
-        ck[rows, slot] = k[:, 0]
-        cv[rows, slot] = v[:, 0]
+        _write_rows(ck, cv, k, v, slot)
         a = attention(q, ck, cv, pos2, ring_valid, logit_cap=cfg.attn_logit_softcap,
                       impl=cfg.attn_impl)
         x = x + a.reshape(b, 1, -1) @ loc["attn"]["wo"]

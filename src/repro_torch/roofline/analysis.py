@@ -8,10 +8,14 @@
 FLOPs and bytes come from `op_stats` (the ops of one call of a port
 function, the kernels by their own work), where the reference parses
 compiled HLO. The reference also parses the collective bytes out of that
-HLO (``parse_collective_bytes``); the port has no HLO and, on one card, no
-collective yet, so ``collective_bytes_per_chip`` is an input here (0 on one
-card) until the port's distribution (ROADMAP A11 (b)) counts its
-``torch.distributed`` calls.
+HLO (``parse_collective_bytes``); the port has no HLO, and
+``collective_bytes_per_chip`` comes from the same count: `op_stats` records
+every collective a call on a mesh issues, DTensor's own redistributions
+included, at its bytes on the wire per rank (`op_stats.wire_bytes`, the
+reference's ring model), as `launch.dryrun` does per cell; on one card it
+is 0. ``collective_s`` keeps the reference's formula (every byte at the
+chip's aggregate link rate); the dry-run records the bytes per mesh dim,
+whose links differ (a 16-wide model axis spans two 8-GPU hosts).
 
 `bound` is the least time the card could take for one call of known work,
 the bound of every kernel row ``chip_smoke.py`` prints.

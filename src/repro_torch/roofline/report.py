@@ -2,14 +2,14 @@
 ``repro.roofline.report``).
 
 The reference reads dry-run artifacts (compiled HLO of each cell on its
-TPU mesh). The port has no dry-run yet (ROADMAP A11 (b)); instead each
-cell of ``ASSIGNED x ALL_SHAPES`` is built at full size on meta tensors
-(`Model.param_struct` plus `configs.shapes.input_specs`: nothing is
-allocated) and its step is counted with `op_stats`: `Model.prefill`,
-`Model.decode` of one token, or the training step at
-`default_microbatches`. Each cell's `RooflineTerms` are for ``chips`` H100s
-sharing the step evenly (default 8, one HGX/DGX H100); the port has no
-collective yet, so the collective term is 0. "HBM/chip" is the bytes of the
+TPU mesh). Here each cell of ``ASSIGNED x ALL_SHAPES`` is built at full
+size on meta tensors (`Model.param_struct` plus `configs.shapes.
+input_specs`: nothing is allocated) and its unsharded step is counted with
+`op_stats`: `Model.prefill`, `Model.decode` of one token, or the training
+step at `default_microbatches`. Each cell's `RooflineTerms` are for
+``chips`` H100s sharing the step evenly (default 8, one HGX/DGX H100), with
+no collective, so the collective term is 0; `launch.dryrun` counts the
+same steps placed on a production mesh, collectives included. "HBM/chip" is the bytes of the
 parameters, inputs and cache over ``chips``: no optimizer state and no
 activations, so a lower bound.
 

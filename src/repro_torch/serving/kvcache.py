@@ -25,16 +25,25 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 
+def cache_batch_dim(cfg: ModelConfig, leaf_name: str) -> int:
+    """Axis of the slot/batch dimension for each cache leaf."""
+    if cfg.family == "hybrid" and leaf_name in ("conv", "state"):
+        return 2  # (Ns, per, B, ...)
+    return 1  # (L, B, ...) attention / ssm / encdec
+
+
 def gather_slots(cfg: ModelConfig, cache: Dict, slot_idx: torch.Tensor) -> Dict:
-    """Copy the slots ``slot_idx`` out of ``cache`` (leaves ``(L, B, ...)``)
-    into a sub-batch cache."""
-    return {name: leaf.index_select(1, slot_idx) for name, leaf in cache.items()}
+    """Copy the slots ``slot_idx`` out of ``cache`` (each leaf's batch on
+    `cache_batch_dim`) into a sub-batch cache."""
+    return {name: leaf.index_select(cache_batch_dim(cfg, name), slot_idx)
+            for name, leaf in cache.items()}
 
 
 def scatter_slots(cfg: ModelConfig, cache: Dict, sub: Dict, slot_idx: torch.Tensor) -> Dict:
     """Write a sub-batch cache back into the slots ``slot_idx``, in place."""
     for name, leaf in cache.items():
-        leaf[:, slot_idx] = sub[name]
+        idx = [slice(None)] * cache_batch_dim(cfg, name)
+        leaf[(*idx, slot_idx)] = sub[name]
     return cache
 
 
@@ -115,6 +124,11 @@ def gather_pages(cfg: ModelConfig, pool: Dict, page_idx: torch.Tensor) -> Dict:
     flat = page_idx.reshape(-1)
     out = {}
     for name, leaf in pool.items():
+        if cache_batch_dim(cfg, name) != 1:
+            raise ValueError(
+                f"paged KV supports attention-style (L, B, T, ...) cache "
+                f"leaves only; leaf {name!r} has its batch on another axis"
+            )
         g = leaf.index_select(1, flat)
         out[name] = g.reshape(leaf.shape[0], b, p * leaf.shape[2], *leaf.shape[3:])
     return out
