@@ -76,7 +76,17 @@ Phases, each printed on its own lines:
            reverse cumsum of dcums dropped) must land beyond twice the
            limit; two calls bit-identical; timed beside the scalar kernels
            in bf16, the plain backward and the bound (no library call
-           computes it)
+           computes it). Then both with several groups of B and C
+           (ssm_ngroups; head h reads group h // (H / G)): forward and
+           backward over SSD_GROUP_SWEEP (every Q x P x N of the tensor-core
+           route at 3 heads a group, blocks of 2 + 1 and 8 + 2 heads, one
+           head a group, a scalar-only shape; f32 on the scalar kernels)
+           within the tolerances above, then zamba2-2.7b's and
+           mamba2-130m's shapes (B=4 L=2048) at 8 groups: two group faults
+           read off the plain versions (every head reading group 0; head h
+           reading group h % G) must land beyond twice the limits, two
+           backward calls bit-identical, each timed device alone beside one
+           group's time with its bound
   train    training on the card: one train step of llama3-8b-smoke,
            minicpm-2b-smoke, mamba2-130m-smoke and zamba2-2.7b-smoke in f32
            at 1 and 2 microbatches on the card (the prefill kernels, the SSD
@@ -97,7 +107,10 @@ Phases, each printed on its own lines:
            peak (`roofline.analysis.train_flops`) and peak memory are
            printed, and one more
            step is profiled by kernel group (the global batch halves if the
-           first step's peak passes 72 GB)
+           first step's peak passes 72 GB); last, zamba2-2.7b whole at 8
+           groups of B and C for 3 steps at the same batch: launches exact,
+           step time, tokens/s and peak memory beside one group's, and the
+           first batch's loss lower after training
   serve    llama3-8b at full width and depth in bf16 (random weights from a
            seed) serves 8 requests through ServeSession under the Kairos
            policies, slot then paged KV; both attention kernels must launch
@@ -181,11 +194,13 @@ Phases, each printed on its own lines:
            card equals the same call on the CPU (MOE_CARD_REL), the expert
            choices are identical and choices were dropped
   ssm      zamba2-2.7b, then mamba2-130m, at full width and depth in bf16
-           (random weights from a seed): Model.prefill of 4 right-padded
-           prompts, handoff into a decode cache, 32 greedy Model.decode
-           steps; the SSD scan (and for zamba2 both attention kernels) must
-           launch once per layer, every SSD call on the tensor-core route;
-           the SSD scan's share of the prefill (layers x its B=4 time)
+           (random weights from a seed), each at its own one group of B and
+           C and then at 8 (freed in between): Model.prefill of 4
+           right-padded prompts, handoff into a decode cache, 32 greedy
+           Model.decode steps; the SSD scan (and for zamba2 both attention
+           kernels) must launch once per layer, every SSD call on the
+           tensor-core route; the SSD scan's share of the prefill (layers x
+           its B=4 time); the two group counts' times side by side
   families the moe, vlm and alternating local/global families at full width
            in bf16 (random weights from a seed): gemma2-9b (all 42 layers)
            and phi3.5-moe-42b-a6.6b (16 of 32 layers; all 32 take ~84 GB in
@@ -630,6 +645,7 @@ def phase_kernels(ctx) -> None:
     rows.append(_ssd_checks(ctx, gen, flush))
     rows.append(_bwd_rows(ctx, gen, flush))
     rows.append(_ssd_bwd_rows(ctx, gen, flush))
+    _ssd_group_checks(ctx, gen, flush, rows)
     ctx["kernel_rows"] = rows
 
 
@@ -1109,8 +1125,7 @@ def _ssd_bwd_ref(x, dt, A, Bm, Cm, chunk, s0, dy, dfinal, fault=None):
     q = min(chunk, x.shape[1])
     if fault == "dS":
         cut = (-(-x.shape[1] // q) // 2) * q
-        _, s_cut = ref.ssd_chunked(xf[:, :cut], dt[:, :cut], A, Bf[:, :cut, None],
-                                   Cf[:, :cut, None], q, s0)
+        _, s_cut = ref.ssd_chunked(xf[:, :cut], dt[:, :cut], A, Bf[:, :cut], Cf[:, :cut], q, s0)
         left = ref.ssd_chunked_bwd(xf[:, :cut], dt[:, :cut], A, Bf[:, :cut], Cf[:, :cut], q, s0,
                                    None, dyf[:, :cut], None)
         right = ref.ssd_chunked_bwd(xf[:, cut:], dt[:, cut:], A, Bf[:, cut:], Cf[:, cut:], q,
@@ -1126,7 +1141,7 @@ def _ssd_bwd_ref(x, dt, A, Bm, Cm, chunk, s0, dy, dfinal, fault=None):
         ref._reverse_cumsum = plain
 
 
-def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False) -> dict:
+def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False, g=None) -> dict:
     """The SSD backward kernels of the route `bwd_route` picks against
     `_ssd_bwd_ref` at one shape, after the forward's route wrote S_in, with
     an initial state where asked and a nonzero gradient of the final state:
@@ -1135,8 +1150,9 @@ def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False) -> d
     it of the route's own rounding written out in plain PyTorch from the
     same S_in (`ssd_tensor_core_bwd_emulation` on the tensor-core route,
     `ssd_chunked_bwd` on bf16 inputs on the scalar one); with ``faults``
-    (bf16) both planted faults must land beyond twice that limit. Returns
-    the readings and the inputs (for timing)."""
+    (bf16) both planted faults must land beyond twice that limit. With
+    ``g``, B and C come in g groups. Returns the readings and the inputs
+    (for timing)."""
     import torch
 
     from repro_torch.kernels.ssd_scan.ops import (
@@ -1149,8 +1165,9 @@ def _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, faults=False) -> d
     )
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd, ssd_tensor_core_bwd_emulation
 
-    what = f"B={b} L={l} H={h} P={p} N={n} Q={chunk}{' init_state' if with_s0 else ''} {dtype}"
-    x, dt, A, Bm, Cm = _ssd_inputs(gen, b, l, h, p, n, dtype)
+    what = (f"B={b} L={l} H={h}{'' if g is None else f' G={g}'} P={p} N={n} Q={chunk}"
+            f"{' init_state' if with_s0 else ''} {dtype}")
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, b, l, h, p, n, dtype, g)
     s0 = _randn(gen, (b, h, p, n), torch.float32) if with_s0 else None
     dy, dfinal = _randn(gen, (b, l, h, p), dtype), _randn(gen, (b, h, p, n), torch.float32)
     _, _, s_in = ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
@@ -1264,6 +1281,7 @@ def _ssd_bwd_rows(ctx, gen, flush) -> dict:
                  kernels=_kernel_ms(kernel, names), scalar_kernels=_kernel_ms(scalar, names),
                  bound_ms=bound_ms, bound_by=bound_by)
         k, ks = t["kernels"], t["scalar_kernels"]
+        ctx.setdefault("ssd_bwd_device_ms", {})[arch] = t["device_ms"]
         say(f"[kernels] ssd_scan_bwd ({arch}) at B={b} L={l} H={h} P={p} N={n} Q={chunk} bf16 "
             f"(forward route {r['route']}): tensor-core route {t['ms']:.4f} ms per call (device "
             f"alone {t['device_ms']:.4f} ms: ssd_state_bwd_wgmma {k['ssd_state_bwd']:.4f} + "
@@ -1297,15 +1315,243 @@ def _ssd_bwd_rows(ctx, gen, flush) -> dict:
     return row
 
 
-def _ssd_inputs(gen, b, l, h, p, n, dtype):
+# Several groups of B and C (ssm_ngroups), forward and backward: (B, L, H, P,
+# N, Q, G, initial state). Every Q x P x N of the tensor-core route at G = 2
+# over 6 heads (3 a group, odd; the small grids take one head a block), then
+# 3 heads a group in blocks of 2 + 1 (N = 128, the backward's split passes),
+# 10 in blocks of 8 + 2, one head a group (G = H), and a shape only the
+# scalar kernels take (P = 16). f32 runs every case on the scalar kernels.
+SSD_GROUP_SWEEP = [
+    *((2 if n == 64 else 1, 300, 6, p, n, q, 2, i % 2 == 0)
+      for i, (q, p, n) in enumerate((q, p, n) for q in (64, 128) for p in (32, 64)
+                                    for n in (32, 64, 128))),
+    (4, 1280, 6, 64, 128, 128, 2, True), (4, 2048, 20, 64, 64, 128, 2, True),
+    (2, 256, 8, 32, 64, 64, 8, False), (1, 100, 6, 16, 16, 32, 3, True),
+]
+SSD_GROUPS = 8  # the groups of the G > 1 rows, as public Mamba2 configs with groups
+# the G > 1 rows: the ssm phase's prefill (forward) and the train phase's
+# microbatch (backward) of both SSM archs, B = 4 L = 2048, ssm_ngroups = 8
+SSD_GROUP_ROWS = {"zamba2-2.7b": (4, 2048, 80, 64, 64, 128),
+                  "mamba2-130m": (4, 2048, 24, 64, 128, 128)}
+
+
+def _wrong_groups(h: int, g: int) -> dict:
+    """The two group faults read off the plain version: the group each head
+    reads in place of h // (H / G): every head group 0, and group h % G."""
+    import torch
+
+    dev = torch.device("cuda")
+    return {"group 0": torch.zeros(h, dtype=torch.long, device=dev),
+            "h % G": torch.arange(h, device=dev) % g}
+
+
+def _ssd_group_fault_bwd(x, dt, A, Bm, Cm, chunk, dy, idx):
+    """The plain backward in f32 with head h reading group idx[h]: each head
+    its own group (B and C gathered), dB and dC summed back onto the groups
+    the heads read."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd
+
+    Bf, Cf = Bm.float(), Cm.float()
+    out = ssd_chunked_bwd(x.float(), dt, A, Bf[:, :, idx], Cf[:, :, idx], min(chunk, x.shape[1]),
+                          None, None, dy.float(), None)
+    dB, dC = (torch.zeros_like(Bf).index_add_(2, idx, d) for d in out[3:5])
+    return out[0], out[1], out[2], dB, dC
+
+
+def _ssd_group_checks(ctx, gen, flush, rows) -> None:
+    """The SSD kernels with several groups of B and C: the forward and the
+    backward over `SSD_GROUP_SWEEP` in f32 (the scalar kernels; 1e-4, and
+    1e-4 x max(1, max|ref|) for the backward) and bf16 (the route each case
+    takes, printed; y and the final state within 2e-2 and `TC_REL_LIMIT`,
+    the gradients within `SSD_BWD_BF16_REL` of the plain versions and of the
+    route's emulation), then `SSD_GROUP_ROWS` at `SSD_GROUPS` groups: both
+    group faults read off the plain forward and backward must land beyond
+    twice the limits, two backward calls bit-identical, and each timed
+    device alone beside the same shape at one group (this call's kernels
+    phase) with its bound. Adds the G = 8 readings to the kernel table's SSD
+    rows."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import (
+        SSD_BWD_BF16_REL,
+        TC_REL_LIMIT,
+        TENSOR_CORE,
+        _head_group,
+        bwd_work,
+        route,
+        ssd,
+        ssd_bwd,
+        ssd_fwd,
+        work,
+    )
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_chunked_bwd
+    from repro_torch.roofline.analysis import bound
+
+    dev = torch.device("cuda")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    worst = {"fwd_f32": 0.0, "fwd_bf16": 0.0, "fwd_rel": 0.0, "bwd_f32": 0.0, "bwd_bf16": 0.0,
+             "bwd_emu": 0.0}
+    routes: dict = {}
+    for b, l, h, p, n, chunk, g, with_s0 in SSD_GROUP_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            what = f"B={b} L={l} H={h} G={g} P={p} N={n} Q={chunk} {dtype}"
+            x, dt, A, Bm, Cm = _ssd_inputs(gen, b, l, h, p, n, dtype, g)
+            s0 = _randn(gen, (b, h, p, n), torch.float32) if with_s0 else None
+            y, fs = ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+            yr, fsr = ssd_chunked(x, dt, A, Bm, Cm, min(chunk, l), s0)
+            err = max(_max_err(y, yr), _max_err(fs, fsr))
+            t = tol[dtype]
+            check(bool(torch.allclose(y.float(), yr.float(), rtol=t, atol=t)
+                       and torch.allclose(fs, fsr, rtol=t, atol=t)),
+                  f"ssd_scan {what}: max err {err}")
+            kernel = route(dtype, p, n, chunk)
+            key = "fwd_f32" if dtype == torch.float32 else "fwd_bf16"
+            worst[key] = max(worst[key], err)
+            rel = None
+            if kernel == TENSOR_CORE:
+                y32, fs32 = _ssd_ref_f32(x, dt, A, Bm, Cm, chunk, s0)
+                rel = max(_rel_err(y, y32), _rel_err(fs, fs32))
+                worst["fwd_rel"] = max(worst["fwd_rel"], rel)
+                check(rel <= TC_REL_LIMIT, f"ssd_scan {what} ({kernel}): relative error "
+                      f"{rel:.3e} beyond {TC_REL_LIMIT}")
+            del x, dt, A, Bm, Cm, y, fs, yr, fsr
+            r = _ssd_bwd_check(gen, b, l, h, p, n, chunk, with_s0, dtype, g=g)
+            r.pop("inputs")
+            if dtype == torch.float32:
+                worst["bwd_f32"] = max(worst["bwd_f32"], r["f32"])
+                continue
+            worst["bwd_bf16"] = max(worst["bwd_bf16"], r["bf16"])
+            worst["bwd_emu"] = max(worst["bwd_emu"], r["emu"])
+            routes[(kernel, r["bwd_route"])] = routes.get((kernel, r["bwd_route"]), 0) + 1
+            q = chunk if kernel == TENSOR_CORE else min(chunk, l)
+            hg = _head_group(h, g, -(-l // q), b, dev)
+            say(f"[kernels] ssd_scan groups bf16 B={b} L={l} H={h} G={g} (heads a group "
+                f"{h // g}, blocks of {hg}) P={p} N={n} Q={chunk}"
+                f"{' init_state' if with_s0 else ''}: forward route {kernel}, max abs err "
+                f"{err:.3e}" + (f", relative error {rel:.3e}" if rel is not None else "")
+                + f"; backward route {r['bwd_route']}, relative error {r['bf16']:.3e}, against "
+                f"the route's emulation {r['emu']:.3e}")
+    say(f"[kernels] ssd_scan groups sweep ok ({2 * len(SSD_GROUP_SWEEP)} cases: every Q x P x N "
+        f"of the tensor-core route at 3 heads a group, blocks of 2 + 1 and 8 + 2, one head a "
+        f"group, initial states, ragged L): forward max abs err f32 {worst['fwd_f32']:.3e} (tol "
+        f"1e-4) bf16 {worst['fwd_bf16']:.3e} (tol 2e-2), relative error "
+        f"{worst['fwd_rel']:.3e} (limit {TC_REL_LIMIT}); backward f32 max abs err / max(1, "
+        f"max|ref|) {worst['bwd_f32']:.3e} (limit {SSD_BWD_F32_TOL}), bf16 relative error "
+        f"{worst['bwd_bf16']:.3e} (limit {SSD_BWD_BF16_REL}), against the route's emulation "
+        f"{worst['bwd_emu']:.3e}; bf16 cases by (forward, backward) route {routes}")
+
+    out = {}
+    g = SSD_GROUPS
+    for arch, (b, l, h, p, n, chunk) in SSD_GROUP_ROWS.items():
+        what = f"{arch} B={b} L={l} H={h} G={g} P={p} N={n} Q={chunk} bf16"
+        x, dt, A, Bm, Cm = _ssd_inputs(gen, b, l, h, p, n, torch.bfloat16, g)
+        check(route(x.dtype, p, n, chunk) == TENSOR_CORE, f"ssd_scan {what}: not on tensor cores")
+        y, fs = ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        y32, fs32 = _ssd_ref_f32(x, dt, A, Bm, Cm, chunk)
+        rel = max(_rel_err(y, y32), _rel_err(fs, fs32))
+        err = max(_max_err(y, y32), _max_err(fs, fs32))
+        check(rel <= TC_REL_LIMIT and err <= 2e-2, f"ssd_scan {what}: relative error {rel:.3e}, "
+              f"max abs err {err:.3e}")
+        faults = {}
+        for name, idx in _wrong_groups(h, g).items():
+            yb, fb = ssd_chunked(x.float(), dt, A, Bm.float()[:, :, idx], Cm.float()[:, :, idx],
+                                 chunk)
+            faults[name] = min(_rel_err(yb, y32), _rel_err(fb, fs32))
+            check(faults[name] > 2 * TC_REL_LIMIT, f"ssd_scan {what}: the fault {name} moves y "
+                  f"and the final state by {faults[name]:.3e}, not clearly beyond {TC_REL_LIMIT}")
+        del y, fs, y32, fs32, yb, fb
+        args = (x, dt, A, Bm, Cm)
+        fwd = dict(
+            ms=_time_ms(lambda: ssd(*args), iters=20, flush=flush),
+            device_ms=_time_ms(lambda: ssd(*args), iters=20, flush=flush, device_only=True),
+            plain_ms=_time_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm, chunk), iters=5, flush=flush),
+            kernels=_ssd_kernel_ms(args, TENSOR_CORE), rel_err=rel, max_abs_err=err,
+            faults=faults)
+        fwd["bound_ms"], fwd["bound_by"] = bound(*work(b, l, h, p, n, chunk, 2, g),
+                                                 torch.bfloat16)
+
+        # backward, as training calls it (no initial state, the final state unused)
+        _, _, s_in = ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+        dy = _randn(gen, (b, l, h, p), torch.bfloat16)
+
+        def kernel():
+            return ssd_bwd(x, dt, A, Bm, Cm, s_in, dy, None, chunk=chunk, with_dinit=False)
+
+        got, again = kernel(), kernel()
+        check(all(torch.equal(u, v) for u, v in zip(got[:5], again[:5], strict=True)),
+              f"ssd_scan_bwd {what}: two calls on the same inputs differ")
+        del again
+        ref = ssd_chunked_bwd(x.float(), dt, A, Bm.float(), Cm.float(), chunk, None, None,
+                              dy.float(), None)
+        rels = [_rel_err(u, v) for u, v in zip(got[:5], ref[:5], strict=True)]
+        check(max(rels) <= SSD_BWD_BF16_REL, f"ssd_scan_bwd {what}: relative error of "
+              f"{SSD_BWD_NAMES[:5]}: {rels} beyond {SSD_BWD_BF16_REL}")
+        bfaults = {}
+        for name, idx in _wrong_groups(h, g).items():
+            bad = _ssd_group_fault_bwd(x, dt, A, Bm, Cm, chunk, dy, idx)
+            bfaults[name] = min(_rel_err(bad[i], ref[i]) for i in (0, 1, 3, 4))
+            check(bfaults[name] > 2 * SSD_BWD_BF16_REL, f"ssd_scan_bwd {what}: the fault {name} "
+                  f"moves dx, ddt, dB, dC by {bfaults[name]:.3e}, not clearly beyond "
+                  f"{SSD_BWD_BF16_REL}")
+            del bad
+        bwd = dict(
+            rel_err=max(rels),
+            max_abs_err=max(_max_err(u, v) for u, v in zip(got[:5], ref[:5], strict=True)),
+            faults=bfaults,
+            ms=_time_ms(kernel, iters=10, flush=flush),
+            device_ms=_time_ms(kernel, iters=10, flush=flush, device_only=True),
+            plain_ms=_time_ms(lambda: ssd_chunked_bwd(x, dt, A, Bm, Cm, chunk, None, s_in, dy,
+                                                      None), iters=3, flush=flush),
+            kernels=_kernel_ms(kernel, ("ssd_state_bwd", "ssd_chunk_bwd", "ssd_bwd_reduce")))
+        bwd["bound_ms"], bwd["bound_by"] = bound(*bwd_work(b, l, h, p, n, chunk, 2, g),
+                                                 torch.bfloat16)
+        del got, ref, x, dt, A, Bm, Cm, s_in, dy
+        torch.cuda.empty_cache()
+        nc = -(-l // chunk)
+        hg = _head_group(h, g, nc, b, dev)
+        one_f, one_b = ctx["ssd_device_ms"][arch], ctx["ssd_bwd_device_ms"][arch]
+        k, kb = fwd["kernels"], bwd["kernels"]
+        say(f"[kernels] ssd_scan at {what} ({h // g} heads a group, ssd_chunk_out and "
+            f"ssd_chunk_bwd_wgmma blocks of {hg}, {g * -(-(h // g) // hg)} a chunk): "
+            f"{fwd['ms']:.4f} ms per call (device alone {fwd['device_ms']:.4f} ms: ssd_state_pass "
+            f"{k['ssd_state_pass']:.4f} + ssd_chunk_out {k['ssd_chunk_out']:.4f} ms profiled; "
+            f"one group {one_f:.4f} ms, {fwd['device_ms'] / one_f:.3f}x), plain "
+            f"{fwd['plain_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); "
+            f"relative error {rel:.3e} (limit {TC_REL_LIMIT}), max abs err {err:.3e} (tol 2e-2); "
+            f"planted faults: every head group 0 {faults['group 0']:.3e}, head h group h % G "
+            f"{faults['h % G']:.3e} [{ctx['card']}]")
+        say(f"[kernels] ssd_scan_bwd at {what}: {bwd['ms']:.4f} ms per call (device alone "
+            f"{bwd['device_ms']:.4f} ms: ssd_state_bwd_wgmma {kb['ssd_state_bwd']:.4f} + "
+            f"ssd_chunk_bwd_wgmma {kb['ssd_chunk_bwd']:.4f} + ssd_bwd_reduce "
+            f"{kb['ssd_bwd_reduce']:.4f} ms profiled; two calls bit-identical; one group "
+            f"{one_b:.4f} ms, {bwd['device_ms'] / one_b:.3f}x), plain {bwd['plain_ms']:.4f} ms, "
+            f"bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']}); relative error of dx, ddt, dA, "
+            f"dB, dC {bwd['rel_err']:.3e} (limit {SSD_BWD_BF16_REL}); planted faults: every "
+            f"head group 0 {bfaults['group 0']:.3e}, head h group h % G {bfaults['h % G']:.3e} "
+            f"[{ctx['card']}]")
+        out[arch] = (fwd, bwd)
+    ctx["ssd_group_device_ms"] = {arch: f["device_ms"] for arch, (f, _) in out.items()}
+    keep = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "rel_err", "max_abs_err")
+    for row in rows:
+        i = {"ssd_scan": 0, "ssd_scan_bwd": 1}.get(row["name"])
+        if i is not None:
+            row[f"groups{g}"] = {arch: {k: v[i][k] for k in keep} for arch, v in out.items()}
+
+
+def _ssd_inputs(gen, b, l, h, p, n, dtype, g=None):
+    """x, dt, A, B, C of one scan; B and C (B, L, N), or (B, L, g, N) where
+    ``g`` groups are given."""
     import torch
 
     dev = torch.device("cuda")
     x = _randn(gen, (b, l, h, p), dtype, 0.5)
     dt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 0.001
     A = -(torch.rand((h,), generator=gen, device=dev) * 3.5 + 0.5)
-    Bm = _randn(gen, (b, l, n), dtype, 0.3)
-    Cm = _randn(gen, (b, l, n), dtype, 0.3)
+    bc = (b, l, n) if g is None else (b, l, g, n)
+    Bm = _randn(gen, bc, dtype, 0.3)
+    Cm = _randn(gen, bc, dtype, 0.3)
     return x, dt, A, Bm, Cm
 
 
@@ -1315,8 +1561,7 @@ def _ssd_ref_f32(x, dt, A, Bm, Cm, chunk, s0=None):
     norm (`TC_REL_LIMIT`)."""
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
-    return ssd_chunked(x.float(), dt, A, Bm.float()[:, :, None], Cm.float()[:, :, None],
-                       min(chunk, x.shape[1]), s0)
+    return ssd_chunked(x.float(), dt, A, Bm.float(), Cm.float(), min(chunk, x.shape[1]), s0)
 
 
 def _ssd_controls(x, dt, A, Bm, Cm, chunk, y32) -> dict:
@@ -2658,6 +2903,31 @@ SSM_MAX_LEN, SSM_STEPS = 2080, 32
 
 
 def phase_ssm(ctx) -> None:
+    """zamba2-2.7b, then mamba2-130m, each at one group of B and C (the
+    config's own) and at `SSD_GROUPS` groups, freed in between: the same
+    prefill, handoff and greedy decode, side by side."""
+    for arch in ("zamba2-2.7b", "mamba2-130m"):
+        one = _ssm_serve(ctx, arch, 1)
+        if arch == "zamba2-2.7b":
+            ctx["launches"]["ssd_scan"] = one["launches"]["ssd_scan"]  # counts zeroed just before
+        many = _ssm_serve(ctx, arch, SSD_GROUPS)
+        say(f"[ssm] {arch}: {SSD_GROUPS} groups against one: prefill "
+            f"{1e3 * many['prefill_s']:.2f} ms against {1e3 * one['prefill_s']:.2f} ms "
+            f"({many['prefill_s'] / one['prefill_s']:.3f}x), decode step mean "
+            f"{1e3 * many['step_s']:.2f} ms against {1e3 * one['step_s']:.2f} ms; ssd_scan "
+            f"launches {many['launches']['ssd_scan']} and {one['launches']['ssd_scan']}, by route "
+            f"{many['by_route']} and {one['by_route']}; request 3's first tokens "
+            f"{many['tokens']} and {one['tokens']} (the weights differ: the in_proj and conv "
+            f"widths grow with the groups) [{ctx['card']}]")
+
+
+def _ssm_serve(ctx, arch: str, groups: int) -> dict:
+    """``arch`` at full width and depth in bf16 with ``groups`` groups of B
+    and C (random weights from seed 0): Model.prefill of SSM_PROMPTS
+    right-padded with valid_len, handoff into a decode cache, SSM_STEPS
+    greedy decode steps. Every logit row and the state finite, the SSD scan
+    (and zamba2's attention kernels) launched once a layer, every SSD call
+    on the tensor-core route. Returns the readings."""
     import gc
 
     import numpy as np
@@ -2673,72 +2943,78 @@ def phase_ssm(ctx) -> None:
     dev, card = ctx["device"], ctx["card"]
     kernels = {"ssd_scan": ssd, "prefill_attention": prefill_attention,
                "decode_attention": decode_attention}
-    for arch in ("zamba2-2.7b", "mamba2-130m"):
-        gc.collect()  # servers of earlier phases hold weights and caches in reference cycles
-        torch.cuda.empty_cache()
-        cfg = get_config(arch)  # full width and depth, bf16 (the config's own dtype)
-        model = build_model(cfg)
-        t0 = time.perf_counter()
-        params = model.init(seed=0, device=dev)
-        torch.cuda.synchronize()
-        n_params = sum(t.numel() for t in _leaves(params))
-        attn = (f", shared attention {cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim} "
-                f"after every {cfg.hybrid_period}" if cfg.hybrid_period else "")
-        say(f"[ssm] {arch}: {cfg.num_layers} Mamba2 layers, d_model {cfg.d_model}, "
-            f"{cfg.ssm_num_heads} SSM heads x {cfg.ssm_head_dim}, state {cfg.ssm_state_dim}{attn}, "
-            f"vocab {cfg.vocab_size}, {cfg.dtype}; {n_params / 1e9:.3f} B random parameters "
-            f"(seed 0) in {time.perf_counter() - t0:.1f} s")
-        rng = np.random.default_rng(0)
-        toks = np.zeros((len(SSM_PROMPTS), max(SSM_PROMPTS)), np.int64)
-        for i, n in enumerate(SSM_PROMPTS):
-            toks[i, :n] = rng.integers(2, cfg.vocab_size, n)
-        inputs = torch.tensor(toks, device=dev)
-        valid = torch.tensor(SSM_PROMPTS, dtype=torch.int32, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in kernels.values():
-            k.launches = 0
-        ssd.route_launches = dict.fromkeys(ssd.route_launches, 0)
-        t0 = time.perf_counter()
-        logits, kv = model.prefill(params, dict(inputs=inputs), valid_len=valid)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        cache = handoff(cfg, kv, model.init_cache(len(SSM_PROMPTS), SSM_MAX_LEN, device=dev))
-        del kv
-        finite = [torch.isfinite(logits).all()]
-        out, step_s, cache = _decode_loop(model, params, torch.argmax(logits, -1), valid.clone(),
-                                          cache, SSM_STEPS, finite)
-        launched = {name: k.launches for name, k in kernels.items()}  # prefill and decode
-        by_route = dict(ssd.route_launches)
-        finite.append(torch.isfinite(cache["state"]).all())
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        check(all(bool(f) for f in finite), f"[ssm] {arch}: a logit row or the state was not finite")
-        check(tuple(out.shape) == (len(SSM_PROMPTS), SSM_STEPS), f"[ssm] {arch}: tokens {out.shape}")
-        want = {"ssd_scan": cfg.num_layers}
-        if cfg.hybrid_period:
-            ns = cfg.num_layers // cfg.hybrid_period
-            want.update(prefill_attention=ns, decode_attention=ns * SSM_STEPS)
-        for name, n in want.items():
-            check(launched[name] == n, f"[ssm] {arch}: {name} launched {launched[name]} times, "
-                  f"expected {n}")
-        check(by_route == {TENSOR_CORE: cfg.num_layers, SCALAR: 0},
-              f"[ssm] {arch}: ssd_scan calls by route {by_route}, expected all "
-              f"{cfg.num_layers} on {TENSOR_CORE}")
-        ssd_ms = cfg.num_layers * ctx["ssd_device_ms"][arch]
-        say(f"[ssm] {arch}: prefill of {len(SSM_PROMPTS)} prompts {list(SSM_PROMPTS)} "
-            f"(right-padded to {max(SSM_PROMPTS)}) {1e3 * prefill_s:.2f} ms; handoff into "
-            f"init_cache({len(SSM_PROMPTS)}, {SSM_MAX_LEN}); {SSM_STEPS} greedy decode steps mean "
-            f"{1e3 * sum(step_s) / len(step_s):.2f} ms (first {1e3 * step_s[0]:.2f} ms); launches "
-            f"{launched}, ssd_scan by route {by_route}; peak memory {peak:.2f} GiB; all logits "
-            f"and states finite; request 3's first tokens {out[3, :8].tolist()} [{card}]")
-        say(f"[ssm] {arch}: {cfg.num_layers} ssd_scan calls x {ctx['ssd_device_ms'][arch]:.4f} ms "
-            f"(device alone at B={len(SSM_PROMPTS)} L={max(SSM_PROMPTS)}, kernels phase) = "
-            f"{ssd_ms:.2f} ms of the {1e3 * prefill_s:.2f} ms prefill "
-            f"({100 * ssd_ms / (1e3 * prefill_s):.1f}%) [{card}]")
-        if arch == "zamba2-2.7b":
-            ctx["launches"]["ssd_scan"] = launched["ssd_scan"]  # counts zeroed just before
-        del params, cache, logits
-        torch.cuda.empty_cache()
+    gc.collect()  # servers of earlier phases hold weights and caches in reference cycles
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)  # full width and depth, bf16 (the config's own dtype)
+    if groups != cfg.ssm_ngroups:
+        cfg = cfg.replace(ssm_ngroups=groups)
+    name = f"{arch} G={groups}"
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    attn = (f", shared attention {cfg.num_heads}/{cfg.num_kv_heads}x{cfg.resolved_head_dim} "
+            f"after every {cfg.hybrid_period}" if cfg.hybrid_period else "")
+    say(f"[ssm] {name}: {cfg.num_layers} Mamba2 layers, d_model {cfg.d_model}, "
+        f"{cfg.ssm_num_heads} SSM heads x {cfg.ssm_head_dim}, state {cfg.ssm_state_dim}, "
+        f"{cfg.ssm_ngroups} group(s) of B and C{attn}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+        f"{n_params / 1e9:.3f} B random parameters (seed 0) in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    toks = np.zeros((len(SSM_PROMPTS), max(SSM_PROMPTS)), np.int64)
+    for i, n in enumerate(SSM_PROMPTS):
+        toks[i, :n] = rng.integers(2, cfg.vocab_size, n)
+    inputs = torch.tensor(toks, device=dev)
+    valid = torch.tensor(SSM_PROMPTS, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    ssd.route_launches = dict.fromkeys(ssd.route_launches, 0)
+    t0 = time.perf_counter()
+    logits, kv = model.prefill(params, dict(inputs=inputs), valid_len=valid)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache = handoff(cfg, kv, model.init_cache(len(SSM_PROMPTS), SSM_MAX_LEN, device=dev))
+    del kv
+    finite = [torch.isfinite(logits).all()]
+    out, step_s, cache = _decode_loop(model, params, torch.argmax(logits, -1), valid.clone(),
+                                      cache, SSM_STEPS, finite)
+    launched = {kname: k.launches for kname, k in kernels.items()}  # prefill and decode
+    by_route = dict(ssd.route_launches)
+    finite.append(torch.isfinite(cache["state"]).all())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(bool(f) for f in finite), f"[ssm] {name}: a logit row or the state was not finite")
+    check(tuple(out.shape) == (len(SSM_PROMPTS), SSM_STEPS), f"[ssm] {name}: tokens {out.shape}")
+    want = {"ssd_scan": cfg.num_layers}
+    if cfg.hybrid_period:
+        ns = cfg.num_layers // cfg.hybrid_period
+        want.update(prefill_attention=ns, decode_attention=ns * SSM_STEPS)
+    for kname, n in want.items():
+        check(launched[kname] == n, f"[ssm] {name}: {kname} launched {launched[kname]} times, "
+              f"expected {n}")
+    check(by_route == {TENSOR_CORE: cfg.num_layers, SCALAR: 0},
+          f"[ssm] {name}: ssd_scan calls by route {by_route}, expected all "
+          f"{cfg.num_layers} on {TENSOR_CORE}")
+    one_ms = (ctx["ssd_device_ms"] if groups == 1 else ctx["ssd_group_device_ms"])[arch]
+    ssd_ms = cfg.num_layers * one_ms
+    step_mean = sum(step_s) / len(step_s)
+    say(f"[ssm] {name}: prefill of {len(SSM_PROMPTS)} prompts {list(SSM_PROMPTS)} "
+        f"(right-padded to {max(SSM_PROMPTS)}) {1e3 * prefill_s:.2f} ms; handoff into "
+        f"init_cache({len(SSM_PROMPTS)}, {SSM_MAX_LEN}); {SSM_STEPS} greedy decode steps mean "
+        f"{1e3 * step_mean:.2f} ms (first {1e3 * step_s[0]:.2f} ms); launches "
+        f"{launched}, ssd_scan by route {by_route}; peak memory {peak:.2f} GiB; all logits "
+        f"and states finite; request 3's first tokens {out[3, :8].tolist()} [{card}]")
+    say(f"[ssm] {name}: {cfg.num_layers} ssd_scan calls x {one_ms:.4f} ms "
+        f"(device alone at B={len(SSM_PROMPTS)} L={max(SSM_PROMPTS)}, kernels phase) = "
+        f"{ssd_ms:.2f} ms of the {1e3 * prefill_s:.2f} ms prefill "
+        f"({100 * ssd_ms / (1e3 * prefill_s):.1f}%) [{card}]")
+    res = dict(prefill_s=prefill_s, step_s=step_mean, launches=launched, by_route=by_route,
+               tokens=out[3, :8].tolist())
+    del params, cache, logits, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------------------------- families
@@ -3631,11 +3907,14 @@ def _train_resume(ctx) -> None:
         f"[{ctx['card']}]")
 
 
-def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
-    """``arch`` whole in bf16 (random weights from seed 0): TRAIN_STEPS AdamW
-    steps at ``global_batch`` x TRAIN_SEQ tokens, TRAIN_MICRO microbatches,
-    remat, WSD warm-up 2 to ``lr``; each step's kernel launches must be
-    exactly `_train_launches_per_step`'s. Returns the run's readings."""
+def _train_full(ctx, arch: str, lr: float, global_batch: int, groups: int = 1,
+                steps: int = TRAIN_STEPS, profile: bool = True) -> dict:
+    """``arch`` whole in bf16 (random weights from seed 0), with ``groups``
+    groups of B and C where it has SSM layers: ``steps`` AdamW steps at
+    ``global_batch`` x TRAIN_SEQ tokens, TRAIN_MICRO microbatches, remat,
+    WSD warm-up 2 to ``lr``; each step's kernel launches must be exactly
+    `_train_launches_per_step`'s; one more step under the profiler where
+    ``profile``. Returns the run's readings."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3647,6 +3926,8 @@ def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
     from repro_torch.training.train_step import make_train_step
 
     cfg = get_config(arch)
+    if groups != cfg.ssm_ngroups:
+        cfg = cfg.replace(ssm_ngroups=groups)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(0, device=ctx["device"])
@@ -3654,7 +3935,8 @@ def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     trunk = (f"{cfg.num_layers} Mamba2 layers ({cfg.ssm_num_heads} SSD heads x "
-             f"{cfg.ssm_head_dim}, state {cfg.ssm_state_dim}, chunk {cfg.ssm_chunk})"
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state_dim}, {cfg.ssm_ngroups} group(s) of B "
+             f"and C, chunk {cfg.ssm_chunk})"
              if cfg.family in ("ssm", "hybrid") else f"{cfg.num_layers} layers")
     if cfg.family == "hybrid":
         trunk += (f", a shared attention block after every {cfg.hybrid_period} "
@@ -3667,7 +3949,7 @@ def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     ds = SyntheticDataset(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=global_batch))
     step_fn = make_train_step(model, OptimizerConfig(lr=lr, warmup_steps=2,
-                                                     stable_steps=TRAIN_STEPS, decay_steps=1),
+                                                     stable_steps=steps, decay_steps=1),
                               n_micro=TRAIN_MICRO)
     tokens = global_batch * TRAIN_SEQ
     flops = train_flops(cfg, params, tokens, TRAIN_SEQ)
@@ -3675,7 +3957,7 @@ def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _zero_train_launches()
     losses, out = [], dict(step_s=[], peak=[], gnorm=[])
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         batch = {k: torch.from_numpy(v).to(ctx["device"]) for k, v in ds.batch_at(i).items()}
         before = _train_launches()
         torch.cuda.synchronize()
@@ -3704,13 +3986,14 @@ def _train_full(ctx, arch: str, lr: float, global_batch: int) -> dict:
     out.update(losses=losses, launches=_train_launches(), tokens=tokens, flops=flops, lr=lr,
                want=want)
     del m
-    if len(losses) == TRAIN_STEPS:  # the first batch again, after training (batch-free signal)
+    if len(losses) == steps:  # the first batch again, after training (batch-free signal)
         first = {k: torch.from_numpy(v).to(ctx["device"]) for k, v in ds.batch_at(0).items()}
         with torch.no_grad():
             out["first_after"] = sum(
                 float(model.loss(params, {k: v.chunk(TRAIN_MICRO)[i] for k, v in first.items()}))
                 for i in range(TRAIN_MICRO)) / TRAIN_MICRO
-        out["profile"] = _train_profile(step_fn, params, opt, ds, ctx["device"])
+        if profile:
+            out["profile"] = _train_profile(step_fn, params, opt, ds, ctx["device"])
     del params, opt
     return out
 
@@ -3754,6 +4037,40 @@ def phase_train(ctx) -> None:
     _train_resume(ctx)
     for arch, lr in TRAIN_RUNS:
         _train_run(ctx, arch, lr)
+    _train_groups(ctx)
+
+
+TRAIN_GROUP_STEPS = 3  # steps of zamba2-2.7b at SSD_GROUPS groups of B and C
+
+
+def _train_groups(ctx) -> None:
+    """zamba2-2.7b whole at `SSD_GROUPS` groups of B and C for
+    TRAIN_GROUP_STEPS steps at the global batch and lr of its one-group run:
+    each step's launches exact, the step time, tokens/s and peak memory
+    beside the one-group run's, and whether the loss falls (the first
+    batch's, after training, below its first reading)."""
+    _free()
+    arch, lr = "zamba2-2.7b", dict(TRAIN_RUNS)["zamba2-2.7b"]
+    gb, one = ctx["train_steps"][arch]
+    r = _train_full(ctx, arch, lr, gb, groups=SSD_GROUPS, steps=TRAIN_GROUP_STEPS, profile=False)
+    _free()
+    losses = r["losses"]
+    check(len(losses) == TRAIN_GROUP_STEPS, f"[train] {arch} G={SSD_GROUPS}: the peak "
+          f"{r['peak'][0] / 1e9:.2f} GB passed {TRAIN_PEAK_LIMIT / 1e9:.0f} GB at global "
+          f"batch {gb}")
+    check(r["first_after"] < losses[0], f"[train] {arch} G={SSD_GROUPS}: the first batch's loss "
+          f"rose from {losses[0]} to {r['first_after']} over {TRAIN_GROUP_STEPS} steps")
+    steady = r["step_s"][1:]
+    mean = sum(steady) / len(steady)
+    say(f"[train] {arch} whole at {SSD_GROUPS} groups of B and C, bf16, global batch {gb} x "
+        f"{TRAIN_SEQ} tokens, {TRAIN_MICRO} microbatches, remat, lr {lr}: {TRAIN_GROUP_STEPS} "
+        f"steps, loss {', '.join(f'{x:.4f}' for x in losses)}; the first batch's {losses[0]:.4f} "
+        f"-> {r['first_after']:.4f} after training (falls: {r['first_after'] < losses[0]}); "
+        f"steps 1-{TRAIN_GROUP_STEPS - 1} mean {mean:.3f} s, {r['tokens'] / mean:.0f} tokens/s "
+        f"(one group: {one:.3f} s, {r['tokens'] / one:.0f} tokens/s, {mean / one:.3f}x); first "
+        f"step {r['step_s'][0]:.3f} s; peak memory {max(r['peak']) / 1e9:.2f} GB; kernel "
+        f"launches over the {TRAIN_GROUP_STEPS} steps {r['launches']} ({r['want']} a step; SSD "
+        f"backward {r['launches']['ssd_bwd']}) [{ctx['card']}]")
 
 
 def _train_run(ctx, arch: str, lr: float) -> None:

@@ -1,4 +1,5 @@
-// Mamba2 SSD chunked scan (state-space duality, ngroups = 1) for Hopper.
+// Mamba2 SSD chunked scan (state-space duality, G groups of B and C) for
+// Hopper.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py (ssd_scan,
 // body _ssd_kernel), whose oracle is src/repro/models/ssm.py::ssd_chunked.
@@ -7,12 +8,15 @@
 //   y[i]    = sum_{j<=i} (C_i . B_j) exp(cums_i - cums_j) dt_j x_j
 //             + exp(cums_i) (C_i . state)                         (P values)
 //   state' = state exp(cums_last) + sum_t exp(cums_last - cums_t) dt_t x_t B_t^T
-// B and C (one group) are shared by every head.
+// B and C come in G groups (B, L, G, N): head h reads group h / (H / G), as
+// the reference's jnp.repeat of the groups over the heads; a row of B or C
+// is G N elements, group g at offset g N. G = 1 shares one group across
+// every head.
 //
 // What bounds the function on the card: per (b, h, chunk) the work is
 // 2 Q^2 N (C B^T) + 2 Q^2 P (scores . x dt) + 4 Q N P (C state^T, state
 // increment) operations, against x and y read and written once and B, C
-// and dt read once for all heads. At zamba2-2.7b's serving shapes (Q = 128,
+// and dt read once (B and C once per group). At zamba2-2.7b's serving shapes (Q = 128,
 // P = N = 64, bf16) that is about 190 operations per byte, below the H100's
 // ~295: the function is bound by bytes (x, y, B, C, dt and the final state:
 // ~89 MB at B = 2, L = 2048, H = 80, 0.027 ms at 3.35 TB/s).
@@ -40,11 +44,14 @@
 //   computes (a ring of two chunks), and shared memory (67 KiB at N = 64,
 //   99 KiB at N = 128) leaves room for three or two blocks per SM. Every
 //   warp scans the chunk's dA itself, so no block barrier guards the scan.
-//   ssd_chunk_out, grid (H / HG, NC, B), Q / 64 warpgroups of 64 rows:
-//   every chunk at once. G = C_c . B_c^T (both K-major over N, as
-//   S = Q.K^T in prefill_attention.cu) is computed once into f32 registers
-//   and reused for the block's HG heads, which ngroups = 1 allows; a
-//   warpgroup computes only the 64-column blocks its rows can see. Per
+//   ssd_chunk_out, grid (G ceil(rep / HG), NC, B) with rep = H / G heads
+//   per group, Q / 64 warpgroups of 64 rows: every chunk at once. The
+//   scores C_c . B_c^T (both K-major over N, as S = Q.K^T in
+//   prefill_attention.cu) are computed once into f32 registers and reused
+//   for the block's HG heads, so a block's heads lie in one group: each
+//   group's rep heads are cut into blocks of HG, the last one partial
+//   (rep = 3 at HG = 2: 2 + 1); a warpgroup computes only the 64-column
+//   blocks its rows can see. Per
 //   head: y = C . S_in^T first (S_in rounded to bf16 into shared memory,
 //   not a TF32 product: C stays bf16, both operands K-major, and the error
 //   stays inside the route's limit), its rows scaled by exp(cums_i) in
@@ -58,7 +65,8 @@
 //   into a ring of three, and the next head's S_in tile is read into
 //   registers while the current head computes. HG is 8, halved while the
 //   grid would not fill the SMs (HG = 8 at zamba2 B = 2: 320 blocks; 4 at
-//   mamba2 B = 2: 192 blocks).
+//   mamba2 B = 2: 192 blocks), then at most rep; ops.py::_head_group is the
+//   same rule for the backward's blocks.
 //   What holds the route back (PERF.md): the loads and stores themselves,
 //   not the products. On an H100 most of the state pass's time goes to
 //   issuing its 16-byte cp.async copies; deeper rings, more blocks per SM
@@ -70,8 +78,8 @@
 // cannot meet), runs the first version's scalar kernel, ssd_scan_kernel:
 // one block owns one (b, h) and loops over the chunks in order, carrying
 // the (P, N) f32 state in shared memory, with the products as f32 FMAs
-// from f32 shared tiles; it reads B and C once per head and runs B * H
-// blocks. The intra-chunk product runs RB = 32 query rows at a time over
+// from f32 shared tiles; it reads its head's group of B and C once per
+// head and runs B * H blocks. The intra-chunk product runs RB = 32 query rows at a time over
 // a 32 x Q score tile, only over the columns j < the tile's last row + 1.
 // 256 threads as a 16 x 16 grid (ty, tx): score columns tx + 16 c, output
 // columns tx + 16 e, state entries (ty * P/16 + i, tx + 16 c). Tiles have
@@ -108,7 +116,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ init_state,
                 T* __restrict__ y, float* __restrict__ final_state, float* __restrict__ s_in,
-                int L, int H, int Q) {
+                int L, int H, int G, int Q) {
   constexpr int LDN = N + 1, LDP = P + 1, LDS = QMAX + 1;
   constexpr int RPT = RB / 16;    // score and output rows per thread
   constexpr int CPT = QMAX / 16;  // score column groups
@@ -128,6 +136,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const float a = A[h];
   const int64_t state_off = ((int64_t)b * H + h) * P * N;
+  const int grp = h / (H / G);  // the group of B and C this head reads
 
   for (int i = tid; i < P * N; i += NT)
     Ss[(i / N) * LDN + i % N] = init_state != nullptr ? init_state[state_off + i] : 0.f;
@@ -145,12 +154,12 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     {
       RowTile<T, N, QMAX, NT> bt;
-      bt.load(Bm + ((int64_t)b * L + l0) * N, N, nq);
+      bt.load(Bm + (((int64_t)b * L + l0) * G + grp) * N, (int64_t)G * N, nq);
       bt.store(Bs, LDN);
     }
     {
       RowTile<T, N, QMAX, NT> ct;
-      ct.load(Cm + ((int64_t)b * L + l0) * N, N, nq);
+      ct.load(Cm + (((int64_t)b * L + l0) * G + grp) * N, (int64_t)G * N, nq);
       ct.store(Cs, LDN);
     }
     if (tid < QMAX) dts[tid] = tid < nq ? dt[((int64_t)b * L + l0 + tid) * H + h] : 0.f;
@@ -300,7 +309,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 template <typename T, int P, int N>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            const void* init_state, void* y, void* final_state, void* s_in, int B, int L, int H,
-           int Q, cudaStream_t stream) {
+           int G, int Q, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<P, N>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -314,19 +323,19 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<const float*>(init_state), static_cast<T*>(y),
-      static_cast<float*>(final_state), static_cast<float*>(s_in), L, H, Q);
+      static_cast<float*>(final_state), static_cast<float*>(s_in), L, H, G, Q);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int P>
 int dispatch_n(int N, const void* x, const void* dt, const void* A, const void* Bm,
                const void* Cm, const void* s0, void* y, void* fs, void* si, int B, int L, int H,
-               int Q, cudaStream_t st) {
+               int G, int Q, cudaStream_t st) {
   switch (N) {
-    case 16: return launch<T, P, 16>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
-    case 32: return launch<T, P, 32>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
-    case 64: return launch<T, P, 64>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
-    case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
+    case 16: return launch<T, P, 16>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, G, Q, st);
+    case 32: return launch<T, P, 32>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, G, Q, st);
+    case 64: return launch<T, P, 64>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, G, Q, st);
+    case 128: return launch<T, P, 128>(x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, G, Q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -334,11 +343,11 @@ int dispatch_n(int N, const void* x, const void* dt, const void* A, const void* 
 template <typename T>
 int dispatch(int P, int N, const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* s0, void* y, void* fs, void* si, int B, int L, int H,
-             int Q, cudaStream_t st) {
+             int G, int Q, cudaStream_t st) {
   switch (P) {
-    case 16: return dispatch_n<T, 16>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
-    case 32: return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
-    case 64: return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, Q, st);
+    case 16: return dispatch_n<T, 16>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, G, Q, st);
+    case 32: return dispatch_n<T, 32>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, G, Q, st);
+    case 64: return dispatch_n<T, 64>(N, x, dt, A, Bm, Cm, s0, y, fs, si, B, L, H, G, Q, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -370,7 +379,7 @@ __global__ void __launch_bounds__(128)
 ssd_state_pass(const bf16* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const bf16* __restrict__ Bm,
                const float* __restrict__ init_state, float* __restrict__ s_in,
-               float* __restrict__ final_state, int L, int H) {
+               float* __restrict__ final_state, int L, int H, int G) {
   using Slot = StateSlot<Q, P, N>;
   constexpr uint32_t GROUP_N = N / 8 * 128;  // bytes between 8-row groups of a B tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -386,6 +395,7 @@ ssd_state_pass(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int p0 = 16 * warp + lane / 4;
   const bool rows_ok = 16 * warp < P;  // uniform over the warp
   const int64_t st_off = ((int64_t)b * H + h) * P * N;
+  const int grp = h / (H / G);  // the group of B this head reads
 
   auto issue = [&](int c) {  // copies of chunk c into its slot, as one commit group
     if (c < nc) {
@@ -394,7 +404,9 @@ ssd_state_pass(const bf16* __restrict__ x, const float* __restrict__ dt,
       load_tile<P, Q, 128>(s.x, nq, [&](int r) {
         return x + (((int64_t)b * L + l0 + r) * H + h) * P;
       });
-      load_tile<N, Q, 128>(s.b, nq, [&](int r) { return Bm + ((int64_t)b * L + l0 + r) * N; });
+      load_tile<N, Q, 128>(s.b, nq, [&](int r) {
+        return Bm + (((int64_t)b * L + l0 + r) * G + grp) * N;
+      });
       for (int t = tid; t < Q; t += 128) {
         const bool ok = t < nq;
         cp_async_4(&s.dt[t], dt + ((int64_t)b * L + l0 + (ok ? t : 0)) * H + h, ok);
@@ -508,7 +520,7 @@ __global__ void __launch_bounds__(2 * Q, 1)
 ssd_chunk_out(const bf16* __restrict__ x, const float* __restrict__ dt,
               const float* __restrict__ A, const bf16* __restrict__ Bm,
               const bf16* __restrict__ Cm, const float* __restrict__ s_in,
-              bf16* __restrict__ y, int L, int H, int hg) {
+              bf16* __restrict__ y, int L, int H, int ngroups, int hg) {
   constexpr int WGS = Q / 64, NT = 128 * WGS;
   constexpr uint32_t GROUP_N = N / 8 * 128;  // bytes between 8-row groups, C/B/S tiles
   constexpr uint32_t GROUP_P = P / 8 * 128;  // ... of an x tile
@@ -517,16 +529,19 @@ ssd_chunk_out(const bf16* __restrict__ x, const float* __restrict__ dt,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   OutSmem<Q, P, N>& sm = *reinterpret_cast<OutSmem<Q, P, N>*>(smem_raw);
 
-  const int h0 = blockIdx.x * hg, c = blockIdx.y, b = blockIdx.z;
+  // the block's heads: HG of its group's rep, the group's last block partial
+  const int rep = H / ngroups, bpg = (rep + hg - 1) / hg;  // heads and blocks per group
+  const int grp = blockIdx.x / bpg, c = blockIdx.y, b = blockIdx.z;
+  const int h0 = grp * rep + (blockIdx.x % bpg) * hg;
   const int nc = gridDim.y;
-  const int nh = warp_uniform(min(hg, H - h0));  // heads of this block
+  const int nh = warp_uniform(min(hg, (grp + 1) * rep - h0));  // heads of this block
   const int l0 = c * Q, nq = min(Q, L - l0);
   const int tid = threadIdx.x;
   const int wg = warp_uniform(tid / 128), warp = warp_uniform((tid % 128) / 32), lane = tid % 32;
   const int64_t row0 = (int64_t)b * L + l0;  // the chunk's first row of the sequence
 
-  load_tile<N, Q, NT>(sm.c, nq, [&](int r) { return Cm + (row0 + r) * N; });
-  load_tile<N, Q, NT>(sm.b, nq, [&](int r) { return Bm + (row0 + r) * N; });
+  load_tile<N, Q, NT>(sm.c, nq, [&](int r) { return Cm + ((row0 + r) * ngroups + grp) * N; });
+  load_tile<N, Q, NT>(sm.b, nq, [&](int r) { return Bm + ((row0 + r) * ngroups + grp) * N; });
   auto issue_x = [&](int g) {  // x of head g into its slot, as one commit group
     if (g < nh)
       load_tile<P, Q, NT>(sm.x[g % XSTAGES], nq, [&](int r) {
@@ -691,7 +706,7 @@ ssd_chunk_out(const bf16* __restrict__ x, const float* __restrict__ dt,
 template <int Q, int P, int N>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            const void* init_state, void* y, void* final_state, void* s_in, int B, int L, int H,
-           cudaStream_t stream) {
+           int G, cudaStream_t stream) {
   constexpr size_t smem_state = state_smem<Q, P, N>();
   constexpr size_t smem_out = sizeof(OutSmem<Q, P, N>);
   static int sms = 0;
@@ -710,19 +725,20 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
       return (int)e;
     }
   }
-  const int nc = (L + Q - 1) / Q;
-  int hg = HG_MAX;  // halved while the grid would leave SMs without a block
-  while (hg > 1 && (int64_t)((H + hg - 1) / hg) * nc * B < sms) hg /= 2;
+  const int nc = (L + Q - 1) / Q, rep = H / G;
+  int hg = HG_MAX;  // halved while the grid would leave SMs without a block, then at most rep
+  while (hg > 1 && (int64_t)G * ((rep + hg - 1) / hg) * nc * B < sms) hg /= 2;
+  hg = min(hg, rep);
   ssd_state_pass<Q, P, N><<<dim3(H, B), 128, smem_state, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(Bm), static_cast<const float*>(init_state),
-      static_cast<float*>(s_in), static_cast<float*>(final_state), L, H);
+      static_cast<float*>(s_in), static_cast<float*>(final_state), L, H, G);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_chunk_out<Q, P, N><<<dim3((H + hg - 1) / hg, nc, B), 2 * Q, smem_out, stream>>>(
+  ssd_chunk_out<Q, P, N><<<dim3(G * ((rep + hg - 1) / hg), nc, B), 2 * Q, smem_out, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm),
-      static_cast<const float*>(s_in), static_cast<bf16*>(y), L, H, hg);
+      static_cast<const float*>(s_in), static_cast<bf16*>(y), L, H, G, hg);
   return (int)cudaGetLastError();
 }
 
@@ -739,11 +755,11 @@ int with_n(int N, F&& f) {
 
 int dispatch(int P, int N, int Q, const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* s0, void* y, void* fs, void* s_in, int B, int L, int H,
-             cudaStream_t st) {
+             int G, cudaStream_t st) {
   auto go = [&](auto q, auto p) {
     return with_n(N, [&](auto n) {
       return launch<decltype(q)::value, decltype(p)::value, decltype(n)::value>(
-          x, dt, A, Bm, Cm, s0, y, fs, s_in, B, L, H, st);
+          x, dt, A, Bm, Cm, s0, y, fs, s_in, B, L, H, G, st);
     });
   };
   using I64 = std::integral_constant<int, 64>;
@@ -760,7 +776,8 @@ int dispatch(int P, int N, int Q, const void* x, const void* dt, const void* A, 
 
 }  // namespace
 
-// x (B, L, H, P), dt (B, L, H) f32, A (H,) f32, Bm/Cm (B, L, N), init_state
+// x (B, L, H, P), dt (B, L, H) f32, A (H,) f32, Bm/Cm (B, L, G, N) with H a
+// multiple of G (head h reads group h / (H / G)), init_state
 // (B, H, P, N) f32 or null (zeros), y (B, L, H, P), final_state (B, H, P, N)
 // f32; all contiguous, on the stream's device; chunks of 1 <= Q <= 128 rows.
 // dtype (of x, Bm, Cm, y): 0 = float32, 1 = bfloat16. s_in: f32 (B,
@@ -773,20 +790,21 @@ int dispatch(int P, int N, int Q, const void* x, const void* dt, const void* A, 
 // cudaError_t, else 0.
 extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
                               const void* Cm, const void* init_state, void* y,
-                              void* final_state, void* s_in, int B, int L, int H, int P, int N,
-                              int Q, int dtype, int route, void* stream) {
-  if (Q < 1 || Q > QMAX || L < 1) return (int)cudaErrorInvalidValue;
+                              void* final_state, void* s_in, int B, int L, int H, int G, int P,
+                              int N, int Q, int dtype, int route, void* stream) {
+  if (Q < 1 || Q > QMAX || L < 1 || G < 1 || H % G) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (dtype != 1 || s_in == nullptr) return (int)cudaErrorInvalidValue;
-    return tc::dispatch(P, N, Q, x, dt, A, Bm, Cm, init_state, y, final_state, s_in, B, L, H, s);
+    return tc::dispatch(P, N, Q, x, dt, A, Bm, Cm, init_state, y, final_state, s_in, B, L, H, G,
+                        s);
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(P, N, x, dt, A, Bm, Cm, init_state, y, final_state, s_in, B, L, H, Q,
-                           s);
+    return dispatch<float>(P, N, x, dt, A, Bm, Cm, init_state, y, final_state, s_in, B, L, H, G,
+                           Q, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(P, N, x, dt, A, Bm, Cm, init_state, y, final_state, s_in, B,
-                                   L, H, Q, s);
+                                   L, H, G, Q, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,21 +1,23 @@
-// Backward of the Mamba2 SSD chunked scan (ssd_scan.cu, ngroups = 1), for
-// Hopper.
+// Backward of the Mamba2 SSD chunked scan (ssd_scan.cu, G groups of B and
+// C), for Hopper.
 //
 // Replaces what the reference gets from XLA's autodiff of its plain scan
 // (src/repro/models/ssm.py::ssd_chunked): the TPU kernel src/repro/kernels/
 // ssd_scan/kernel.py has no gradient, and the reference trains on the plain
 // scan. Per (batch b, head h) and chunk of Q rows, with a = dt A, cums its
-// inclusive cumsum in the chunk, last its last row, G = C B^T (shared by
-// every head), E_ij = exp(cums_i - cums_j) for j <= i (else 0), M = G E, S
-// the state at the chunk's start (S_in, saved by the forward) and dS the
-// gradient of the state at its end:
+// inclusive cumsum in the chunk, last its last row, G = C B^T of the head's
+// group (head h reads group h / (H / ngroups) of B and C, rows of ngroups N
+// elements, as in the forward), E_ij = exp(cums_i - cums_j) for j <= i (else
+// 0), M = G E, S the state at the chunk's start (S_in, saved by the forward)
+// and dS the gradient of the state at its end:
 //   dS_start = exp(cums_last) dS + sum_i exp(cums_i) dy_i C_i^T
 //   dx_j = dt_j (sum_i M_ij dy_i + exp(cums_last - cums_j) dS B_j)
 //   dC_i = sum_j dG_ij B_j + exp(cums_i) S^T dy_i,  dG_ij = (dy_i . x_j) dt_j E_ij
 //   dB_j = sum_i dG_ij C_i + exp(cums_last - cums_j) dt_j dS^T x_j
 //   ddt_j = sum_i M_ij (dy_i . x_j) + exp(cums_last - cums_j) u_j + A da_j,
 //     u_j = x_j . dS B_j,
-// dB and dC summed over the heads, da the reverse cumsum in the chunk of
+// dB and dC of a group summed over its heads, da the reverse cumsum in the
+// chunk of
 //   dcums_i = sum_j R_ij - sum_k R_ki + exp(cums_i) C_i . S^T dy_i
 //             - exp(cums_last - cums_i) dt_i u_i,  R_ij = M_ij dt_j (dy_i . x_j),
 // plus exp(cums_last) <dS, S> + sum_j exp(cums_last - cums_j) dt_j u_j on
@@ -29,9 +31,10 @@
 // 2 Q^2 (2 P + 3 N) + 8 Q P N operations (G, dy.x^T, M^T dy, dG B, dG^T C
 // and the four state products) against x, dy and dx (Q x P each) and S_in
 // (P x N, f32) read or written once, and dt, B, C and their gradients once
-// for all heads. At zamba2-2.7b's training microbatch (B = 4, L = 2048,
-// H = 80, P = N = 64, Q = 128, bf16) that is ~7.5e10 operations against
-// ~0.35 GB: bound by bytes (0.10 ms at 3.35 TB/s), as the forward.
+// (B, C, dB and dC once per group). At zamba2-2.7b's training microbatch
+// (B = 4, L = 2048, H = 80, P = N = 64, Q = 128, bf16, one group) that is
+// ~7.5e10 operations against ~0.35 GB: bound by bytes (0.10 ms at 3.35
+// TB/s), as the forward; 8 groups add 29.4 MB of B, C, dB and dC.
 //
 // Two routes, chosen before any launch by dtype and shape
 // (ssd_scan/ops.py::route at the backward's chunk min(chunk, L), a fixed
@@ -54,8 +57,10 @@
 //   operand, C MN-major. dy, C and dt of the next chunk arrive by cp.async
 //   (a ring of two). Where the chunk kernel splits its passes (N = 128) it
 //   also takes <dS, S> per chunk in f32, parked in the dA partials' scratch.
-//   ssd_chunk_bwd_wgmma, grid (ceil(H / HG), NC, B), Q / 64 warpgroups of 64
-//   rows, HG heads per block in turn, two passes per head:
+//   ssd_chunk_bwd_wgmma, grid (ngroups ceil(rep / HG), NC, B) with rep =
+//   H / ngroups heads per group, Q / 64 warpgroups of 64 rows, HG heads of
+//   one group per block in turn (the group's last block partial), two
+//   passes per head:
 //     pass 1, transposed (this warpgroup's rows j): v = B dS^T and z = x dS;
 //     then, per 64-column block of i its rows see (i >= j; the causal
 //     triangle's hidden blocks are skipped), G^T = B C^T and x dy^T, and
@@ -92,9 +97,8 @@
 //   need the f32 dS where the state pass has it), G held across heads where
 //   registers allow, and pipelining one block's products behind the last's
 //   (tried: G and D of the next block held across the wait spilled).
-//   ngroups = 1: B and C (so G) serve every head of a block. Several groups
-//   (ROADMAP A13) would need the block's heads drawn from one group, B and C
-//   tiles per group, and dB, dC partials and their reduction per group.
+//   A block's heads lie in one group, so its B and C tiles (and G) serve
+//   every head of the block, and its dB, dC partials belong to that group.
 //
 // Everything else, all of f32 included (held to 1e-4, which bf16 tensor
 // cores cannot meet): the first version's scalar kernels, f32 FMAs from f32
@@ -107,8 +111,8 @@
 //     at each chunk it writes dS (the gradient at the chunk's end) to the f32
 //     scratch dS_end (B, NC, H, P, N), then folds the chunk in. dinit is the
 //     last dS.
-// (b) ssd_chunk_bwd, grid (ceil(H / HG), NC, B): every chunk at once, HG
-//     heads per block in turn. Per head two passes over the lower triangle
+// (b) ssd_chunk_bwd, grid (ngroups ceil(rep / HG), NC, B): every chunk at
+//     once, HG heads of one group per block in turn. Per head two passes over the lower triangle
 //     of the Q x Q matrices in tiles of TB = 32, so that no Q x Q matrix is
 //     ever whole in shared memory:
 //       pass 1, by column tiles J (C and dy whole, B_J and x_J, dS): G and
@@ -119,13 +123,13 @@
 //       (G is not needed), dG into one tile; dC_I and C_I . S^T dy_I.
 //     Then dcums, its reverse cumsum da (one warp), ddt and this head's dA
 //     term. dx and ddt are written directly; dB and dC go to f32 partials
-//     per head group (B, NC, ceil(H / HG), Q, N), each entry owned by one
+//     per block (B, NC, ngroups ceil(rep / HG), Q, N), each entry owned by one
 //     thread for every head of the block (read, add, write: no barrier, no
 //     atomic); dA to a partial per (b, chunk, head). Shared memory: C or B
 //     and dy or x whole, dS or S, two tiles: 140 KB at P = N = 64, 198 KB at
 //     P = 64, N = 128 (mamba2-130m), one block per SM.
-// (c) ssd_bwd_reduce: dB and dC summed over the head groups in order and
-//     rounded to x's dtype; dA summed over (b, chunk) in order by the last
+// (c) ssd_bwd_reduce: dB and dC of each group summed over its blocks in
+//     order and rounded to x's dtype; dA summed over (b, chunk) in order by the last
 //     block.
 //
 // Both routes: rows past L are zero-filled and dt there is 0, so they reach
@@ -212,7 +216,7 @@ template <typename T, int P, int N>
 __global__ void __launch_bounds__(NT)
 ssd_state_bwd(const T* __restrict__ dy, const float* __restrict__ dt, const float* __restrict__ A,
               const T* __restrict__ Cm, const float* __restrict__ dfinal,
-              float* __restrict__ ds_end, float* __restrict__ dinit, int L, int H, int Q) {
+              float* __restrict__ ds_end, float* __restrict__ dinit, int L, int H, int G, int Q) {
   constexpr int LDN = N + 1, LDP = P + 1, PPT = P / 16, NPT = N / 16;
   extern __shared__ float smem[];
   float* Cs = smem;              // QMAX x LDN
@@ -226,6 +230,7 @@ ssd_state_bwd(const T* __restrict__ dy, const float* __restrict__ dt, const floa
   const int nc = (L + Q - 1) / Q;
   const float a = A[h];
   const int64_t st_off = ((int64_t)b * H + h) * P * N;
+  const int grp = h / (H / G);  // the group of C this head reads
 
   float ds[PPT][NPT];
 #pragma unroll
@@ -248,7 +253,7 @@ ssd_state_bwd(const T* __restrict__ dy, const float* __restrict__ dt, const floa
     }
     {
       RowTile<T, N, QMAX, NT> ct;
-      ct.load(Cm + ((int64_t)b * L + l0) * N, N, nq);
+      ct.load(Cm + (((int64_t)b * L + l0) * G + grp) * N, (int64_t)G * N, nq);
       ct.store(Cs, LDN);
     }
     if (tid < QMAX) dts[tid] = tid < nq ? dt[((int64_t)b * L + l0 + tid) * H + h] : 0.f;
@@ -299,7 +304,8 @@ ssd_chunk_bwd(const T* __restrict__ x, const float* __restrict__ dt, const float
               const T* __restrict__ Bm, const T* __restrict__ Cm, const T* __restrict__ dy,
               const float* __restrict__ s_in, const float* __restrict__ ds_end,
               T* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dbp,
-              float* __restrict__ dcp, float* __restrict__ dap, int L, int H, int Q, int hg) {
+              float* __restrict__ dcp, float* __restrict__ dap, int L, int H, int G, int Q,
+              int hg) {
   constexpr int LDN = N + 1, LDP = P + 1, PPT = P / 16, NPT = N / 16;
   extern __shared__ float smem[];
   float* F1 = smem;               // QMAX x LDN: C (pass 1), B (pass 2)
@@ -321,12 +327,18 @@ ssd_chunk_bwd(const T* __restrict__ x, const float* __restrict__ dt, const float
   float* dcum = qv + QMAX;        // dcums, then da
   float* wsum = dcum + QMAX;      // 8 warps' partial sums
 
-  const int h0 = blockIdx.x * hg, c = blockIdx.y, b = blockIdx.z;
+  // the block's heads: HG of its group's rep, the group's last block partial
+  const int rep = H / G, bpg = (rep + hg - 1) / hg;  // heads and blocks per group
+  const int grp = blockIdx.x / bpg, c = blockIdx.y, b = blockIdx.z;
+  const int h0 = grp * rep + (blockIdx.x % bpg) * hg;
   const int nc = gridDim.y;
-  const int nh = min(hg, H - h0);
+  const int nh = min(hg, (grp + 1) * rep - h0);
   const int l0 = c * Q, nq = min(Q, L - l0);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, lane = tid % 32, warp = tid / 32;
   const int64_t row0 = (int64_t)b * L + l0;  // the chunk's first row of the sequence
+  const int64_t gs = (int64_t)G * N;  // elements between rows of B or C
+  const T* Bg = Bm + grp * N;         // row r of the group's B at Bg + r * gs
+  const T* Cg = Cm + grp * N;
   const int64_t part = (((int64_t)b * nc + c) * gridDim.x + blockIdx.x) * Q * N;
 
   for (int g = 0; g < nh; ++g) {
@@ -337,7 +349,7 @@ ssd_chunk_bwd(const T* __restrict__ x, const float* __restrict__ dt, const float
     if (tid < QMAX) dts[tid] = tid < nq ? dt[(row0 + tid) * H + h] : 0.f;
     {
       RowTile<T, N, QMAX, NT> ct;
-      ct.load(Cm + row0 * N, N, nq);
+      ct.load(Cg + row0 * gs, gs, nq);
       ct.store(F1, LDN);
     }
     {
@@ -367,7 +379,7 @@ ssd_chunk_bwd(const T* __restrict__ x, const float* __restrict__ dt, const float
       const int nj = min(TB, nq - j0);
       {
         RowTile<T, N, TB, NT> bt;
-        bt.load(Bm + (row0 + j0) * N, N, nj);
+        bt.load(Bg + (row0 + j0) * gs, gs, nj);
         bt.store(SB, LDN);
       }
       {
@@ -527,7 +539,7 @@ ssd_chunk_bwd(const T* __restrict__ x, const float* __restrict__ dt, const float
     // ---- pass 2: row tiles I = [i0, i0 + TB); B, x and S whole
     {
       RowTile<T, N, QMAX, NT> bt;
-      bt.load(Bm + row0 * N, N, nq);
+      bt.load(Bg + row0 * gs, gs, nq);
       bt.store(F1, LDN);
     }
     {
@@ -551,7 +563,7 @@ ssd_chunk_bwd(const T* __restrict__ x, const float* __restrict__ dt, const float
       const int ni = min(TB, nq - i0), jend = min(i0 + TB, nq);
       {
         RowTile<T, N, TB, NT> ctile;
-        ctile.load(Cm + (row0 + i0) * N, N, ni);
+        ctile.load(Cg + (row0 + i0) * gs, gs, ni);
         ctile.store(SB, LDN);
       }
       {
@@ -676,7 +688,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 ssd_bwd_reduce(const float* __restrict__ dbp, const float* __restrict__ dcp,
                const float* __restrict__ dap, T* __restrict__ dB, T* __restrict__ dC,
-               float* __restrict__ dA, int B, int L, int H, int N, int Q, int ng) {
+               float* __restrict__ dA, int B, int L, int H, int G, int N, int Q, int bpg) {
   const int nc = (L + Q - 1) / Q;
   if (blockIdx.x == gridDim.x - 1) {  // dA, summed over (b, chunk) in order
     for (int h = threadIdx.x; h < H; h += NT) {
@@ -686,15 +698,18 @@ ssd_bwd_reduce(const float* __restrict__ dbp, const float* __restrict__ dcp,
     }
     return;
   }
+  // dB and dC (B, L, G, N): entry (b, l, grp, n) sums the bpg blocks of group grp
   const int64_t e = (int64_t)blockIdx.x * NT + threadIdx.x;
-  if (e >= (int64_t)B * L * N) return;
+  if (e >= (int64_t)B * L * G * N) return;
   const int n = (int)(e % N);
-  const int64_t row = e / N;
+  const int64_t gr = e / N;
+  const int grp = (int)(gr % G);
+  const int64_t row = gr / G;
   const int l = (int)(row % L), b = (int)(row / L);
   const int c = l / Q, t = l % Q;
   float sb = 0.f, sc = 0.f;
-  for (int g = 0; g < ng; ++g) {
-    const int64_t off = ((((int64_t)b * nc + c) * ng + g) * Q + t) * N + n;
+  for (int k = 0; k < bpg; ++k) {
+    const int64_t off = ((((int64_t)b * nc + c) * G * bpg + grp * bpg + k) * Q + t) * N + n;
     sb += dbp[off];
     sc += dcp[off];
   }
@@ -706,7 +721,7 @@ template <typename T, int P, int N>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            const void* dy, const void* s_in, const void* dfinal, void* dx, void* ddt, void* dA,
            void* dB, void* dC, void* dinit, void* ds_end, void* dbp, void* dcp, void* dap, int B,
-           int L, int H, int Q, int hg, cudaStream_t stream) {
+           int L, int H, int G, int Q, int hg, cudaStream_t stream) {
   constexpr size_t sm_state = state_smem<P, N>(), sm_chunk = chunk_smem<P, N>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -719,26 +734,26 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const int nc = (L + Q - 1) / Q, ng = (H + hg - 1) / hg;
+  const int nc = (L + Q - 1) / Q, bpg = (H / G + hg - 1) / hg;
   ssd_state_bwd<T, P, N><<<dim3(H, B), NT, sm_state, stream>>>(
       static_cast<const T*>(dy), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(Cm), static_cast<const float*>(dfinal), static_cast<float*>(ds_end),
-      static_cast<float*>(dinit), L, H, Q);
+      static_cast<float*>(dinit), L, H, G, Q);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_chunk_bwd<T, P, N><<<dim3(ng, nc, B), NT, sm_chunk, stream>>>(
+  ssd_chunk_bwd<T, P, N><<<dim3(G * bpg, nc, B), NT, sm_chunk, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), static_cast<const T*>(dy),
       static_cast<const float*>(s_in), static_cast<const float*>(ds_end), static_cast<T*>(dx),
       static_cast<float*>(ddt), static_cast<float*>(dbp), static_cast<float*>(dcp),
-      static_cast<float*>(dap), L, H, Q, hg);
+      static_cast<float*>(dap), L, H, G, Q, hg);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int64_t total = (int64_t)B * L * N;
+  const int64_t total = (int64_t)B * L * G * N;
   ssd_bwd_reduce<T><<<(unsigned)((total + NT - 1) / NT + 1), NT, 0, stream>>>(
       static_cast<const float*>(dbp), static_cast<const float*>(dcp),
       static_cast<const float*>(dap), static_cast<T*>(dB), static_cast<T*>(dC),
-      static_cast<float*>(dA), B, L, H, N, Q, ng);
+      static_cast<float*>(dA), B, L, H, G, N, Q, bpg);
   return (int)cudaGetLastError();
 }
 
@@ -768,12 +783,12 @@ template <typename T>
 int dispatch(int P, int N, const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* dy, const void* s_in, const void* dfinal, void* dx,
              void* ddt, void* dA, void* dB, void* dC, void* dinit, void* ds_end, void* dbp,
-             void* dcp, void* dap, int B, int L, int H, int Q, int hg, cudaStream_t st) {
+             void* dcp, void* dap, int B, int L, int H, int G, int Q, int hg, cudaStream_t st) {
   return with_p(P, [&](auto p) {
     return with_n(N, [&](auto n) {
       return launch<T, decltype(p)::value, decltype(n)::value>(
           x, dt, A, Bm, Cm, dy, s_in, dfinal, dx, ddt, dA, dB, dC, dinit, ds_end, dbp, dcp, dap,
-          B, L, H, Q, hg, st);
+          B, L, H, G, Q, hg, st);
     });
   });
 }
@@ -828,7 +843,7 @@ ssd_state_bwd_wgmma(const bf16* __restrict__ dy, const float* __restrict__ dt,
                     const float* __restrict__ A, const bf16* __restrict__ Cm,
                     const float* __restrict__ dfinal, const float* __restrict__ s_in,
                     float* __restrict__ ds_end, float* __restrict__ dinit,
-                    float* __restrict__ dsdot, int L, int H) {
+                    float* __restrict__ dsdot, int L, int H, int G) {
   using Slot = StateBwdSlot<Q, P, N>;
   constexpr uint32_t GROUP_N = N / 8 * 128;  // bytes between 8-row groups of a C tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -845,6 +860,7 @@ ssd_state_bwd_wgmma(const bf16* __restrict__ dy, const float* __restrict__ dt,
   const int p0 = 16 * warp + lane / 4;
   const bool rows_ok = 16 * warp < P;  // uniform over the warp
   const int64_t st_off = ((int64_t)b * H + h) * P * N;
+  const int grp = h / (H / G);  // the group of C this head reads
 
   auto issue = [&](int k) {  // copies of chunk nc - 1 - k into its slot, as one commit group
     if (k < nc) {
@@ -853,7 +869,9 @@ ssd_state_bwd_wgmma(const bf16* __restrict__ dy, const float* __restrict__ dt,
       load_tile<P, Q, 128>(s.dy, nq, [&](int r) {
         return dy + (((int64_t)b * L + l0 + r) * H + h) * P;
       });
-      load_tile<N, Q, 128>(s.c, nq, [&](int r) { return Cm + ((int64_t)b * L + l0 + r) * N; });
+      load_tile<N, Q, 128>(s.c, nq, [&](int r) {
+        return Cm + (((int64_t)b * L + l0 + r) * G + grp) * N;
+      });
       for (int t = tid; t < Q; t += 128) {
         const bool ok = t < nq;
         cp_async_4(&s.dt[t], dt + ((int64_t)b * L + l0 + (ok ? t : 0)) * H + h, ok);
@@ -1020,7 +1038,8 @@ ssd_chunk_bwd_wgmma(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
                     const float* __restrict__ s_in, const float* __restrict__ ds_end,
                     bf16* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dbp,
-                    float* __restrict__ dcp, float* __restrict__ dap, int L, int H, int hg) {
+                    float* __restrict__ dcp, float* __restrict__ dap, int L, int H, int ngroups,
+                    int hg) {
   constexpr int WGS = Q / 64, NT = 128 * WGS, NW = NT / 32;
   constexpr bool FUSED = FUSED_PASSES<N>;
   constexpr uint32_t GROUP_N = N / 8 * 128;  // bytes between 8-row groups, C/B/state tiles
@@ -1029,9 +1048,12 @@ ssd_chunk_bwd_wgmma(const bf16* __restrict__ x, const float* __restrict__ dt,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   ChunkBwdSmem<Q, P, N>& sm = *reinterpret_cast<ChunkBwdSmem<Q, P, N>*>(smem_raw);
 
-  const int h0 = blockIdx.x * hg, c = blockIdx.y, b = blockIdx.z;
+  // the block's heads: HG of its group's rep, the group's last block partial
+  const int rep = H / ngroups, bpg = (rep + hg - 1) / hg;  // heads and blocks per group
+  const int grp = blockIdx.x / bpg, c = blockIdx.y, b = blockIdx.z;
+  const int h0 = grp * rep + (blockIdx.x % bpg) * hg;
   const int nc = gridDim.y;
-  const int nh = warp_uniform(min(hg, H - h0));  // heads of this block
+  const int nh = warp_uniform(min(hg, (grp + 1) * rep - h0));  // heads of this block
   const int nsteps = FUSED ? nh : 2 * nh;
   const int l0 = c * Q, nq = min(Q, L - l0);
   const int tid = threadIdx.x, lane = tid % 32, gw = warp_uniform(tid / 32);
@@ -1040,8 +1062,8 @@ ssd_chunk_bwd_wgmma(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int r0 = 64 * wg + 16 * warp + lane / 4;  // this thread's rows r0 and r0 + 8
   const int64_t part = (((int64_t)b * nc + c) * gridDim.x + blockIdx.x) * Q * N;
 
-  load_tile<N, Q, NT>(sm.c, nq, [&](int r) { return Cm + (row0 + r) * N; });
-  load_tile<N, Q, NT>(sm.b, nq, [&](int r) { return Bm + (row0 + r) * N; });
+  load_tile<N, Q, NT>(sm.c, nq, [&](int r) { return Cm + ((row0 + r) * ngroups + grp) * N; });
+  load_tile<N, Q, NT>(sm.b, nq, [&](int r) { return Bm + ((row0 + r) * ngroups + grp) * N; });
   // Step s takes head s % nh: x and dy into slot s % XSTAGES and its state
   // tiles into sf (fused: dS, S; else dS in the first pass, S in the
   // second), as one commit group.
@@ -1440,7 +1462,7 @@ template <int Q, int P, int N>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            const void* dy, const void* s_in, const void* dfinal, void* dx, void* ddt, void* dA,
            void* dB, void* dC, void* dinit, void* ds_end, void* dbp, void* dcp, void* dap, int B,
-           int L, int H, int hg, cudaStream_t stream) {
+           int L, int H, int G, int hg, cudaStream_t stream) {
   constexpr size_t sm_state = state_bwd_smem<Q, P, N>(), sm_chunk = sizeof(ChunkBwdSmem<Q, P, N>);
   static bool attr_set = false;
   if (!attr_set) {
@@ -1453,27 +1475,27 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const int nc = (L + Q - 1) / Q, ng = (H + hg - 1) / hg;
+  const int nc = (L + Q - 1) / Q, bpg = (H / G + hg - 1) / hg;
   ssd_state_bwd_wgmma<Q, P, N><<<dim3(H, B), 128, sm_state, stream>>>(
       static_cast<const bf16*>(dy), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(Cm), static_cast<const float*>(dfinal),
       static_cast<const float*>(s_in), static_cast<float*>(ds_end), static_cast<float*>(dinit),
-      static_cast<float*>(dap), L, H);
+      static_cast<float*>(dap), L, H, G);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  ssd_chunk_bwd_wgmma<Q, P, N><<<dim3(ng, nc, B), 2 * Q, sm_chunk, stream>>>(
+  ssd_chunk_bwd_wgmma<Q, P, N><<<dim3(G * bpg, nc, B), 2 * Q, sm_chunk, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), static_cast<const bf16*>(dy),
       static_cast<const float*>(s_in), static_cast<const float*>(ds_end), static_cast<bf16*>(dx),
       static_cast<float*>(ddt), static_cast<float*>(dbp), static_cast<float*>(dcp),
-      static_cast<float*>(dap), L, H, hg);
+      static_cast<float*>(dap), L, H, G, hg);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int64_t total = (int64_t)B * L * N;
+  const int64_t total = (int64_t)B * L * G * N;
   ssd_bwd_reduce<bf16><<<(unsigned)((total + NT - 1) / NT + 1), NT, 0, stream>>>(
       static_cast<const float*>(dbp), static_cast<const float*>(dcp),
       static_cast<const float*>(dap), static_cast<bf16*>(dB), static_cast<bf16*>(dC),
-      static_cast<float*>(dA), B, L, H, N, Q, ng);
+      static_cast<float*>(dA), B, L, H, G, N, Q, bpg);
   return (int)cudaGetLastError();
 }
 
@@ -1491,13 +1513,13 @@ int with_tc_n(int N, F&& f) {
 int dispatch(int P, int N, int Q, const void* x, const void* dt, const void* A, const void* Bm,
              const void* Cm, const void* dy, const void* s_in, const void* dfinal, void* dx,
              void* ddt, void* dA, void* dB, void* dC, void* dinit, void* ds_end, void* dbp,
-             void* dcp, void* dap, int B, int L, int H, int hg, cudaStream_t st) {
+             void* dcp, void* dap, int B, int L, int H, int G, int hg, cudaStream_t st) {
   if (hg > HG_MAX) return (int)cudaErrorInvalidValue;
   auto go = [&](auto q, auto p) {
     return with_tc_n(N, [&](auto n) {
       return launch<decltype(q)::value, decltype(p)::value, decltype(n)::value>(
           x, dt, A, Bm, Cm, dy, s_in, dfinal, dx, ddt, dA, dB, dC, dinit, ds_end, dbp, dcp, dap,
-          B, L, H, hg, st);
+          B, L, H, G, hg, st);
     });
   };
   using I32 = std::integral_constant<int, 32>;
@@ -1515,12 +1537,15 @@ int dispatch(int P, int N, int Q, const void* x, const void* dt, const void* A, 
 }  // namespace
 
 // x, dy, dx (B, L, H, P), dt, ddt (B, L, H) f32, A, dA (H,) f32, Bm, Cm, dB,
-// dC (B, L, N), s_in (B, NC, H, P, N) f32 (the forward's state at every chunk
-// start), dfinal (B, H, P, N) f32 or null (zeros), dinit (B, H, P, N) f32 or
+// dC (B, L, G, N) with H a multiple of G (head h reads group h / (H / G)),
+// s_in (B, NC, H, P, N) f32 (the forward's state at every chunk start),
+// dfinal (B, H, P, N) f32 or null (zeros), dinit (B, H, P, N) f32 or
 // null (not written); x, Bm, Cm, dy and the gradients dx, dB, dC in dtype
 // (0 = float32, 1 = bfloat16); all contiguous, on the stream's device;
-// chunks of 1 <= Q <= 128 rows, NC = ceil(L / Q). Scratch, f32: ds_end
-// (B, NC, H, P, N), dbp and dcp (B, NC, ceil(H / hg), Q, N), dap (B, NC, H).
+// chunks of 1 <= Q <= 128 rows, NC = ceil(L / Q). hg: heads per block of the
+// chunk kernels, at most H / G (ssd_scan/ops.py::_head_group). Scratch, f32:
+// ds_end (B, NC, H, P, N), dbp and dcp (B, NC, G ceil(H / G / hg), Q, N), dap
+// (B, NC, H).
 // route 1 is the tensor-core route, which takes bf16 with Q in {64, 128},
 // P in {32, 64}, N in {32, 64, 128} and hg <= 8 (ssd_scan/ops.py::route)
 // and launches ssd_state_bwd_wgmma, ssd_chunk_bwd_wgmma and ssd_bwd_reduce;
@@ -1531,21 +1556,22 @@ extern "C" int repro_ssd_scan_bwd(const void* x, const void* dt, const void* A, 
                                   const void* Cm, const void* dy, const void* s_in,
                                   const void* dfinal, void* dx, void* ddt, void* dA, void* dB,
                                   void* dC, void* dinit, void* ds_end, void* dbp, void* dcp,
-                                  void* dap, int B, int L, int H, int P, int N, int Q, int hg,
-                                  int dtype, int route, void* stream) {
-  if (Q < 1 || Q > QMAX || L < 1 || hg < 1) return (int)cudaErrorInvalidValue;
+                                  void* dap, int B, int L, int H, int G, int P, int N, int Q,
+                                  int hg, int dtype, int route, void* stream) {
+  if (Q < 1 || Q > QMAX || L < 1 || hg < 1 || G < 1 || H % G || hg > H / G)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     return tc::dispatch(P, N, Q, x, dt, A, Bm, Cm, dy, s_in, dfinal, dx, ddt, dA, dB, dC, dinit,
-                        ds_end, dbp, dcp, dap, B, L, H, hg, s);
+                        ds_end, dbp, dcp, dap, B, L, H, G, hg, s);
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(P, N, x, dt, A, Bm, Cm, dy, s_in, dfinal, dx, ddt, dA, dB, dC, dinit,
-                           ds_end, dbp, dcp, dap, B, L, H, Q, hg, s);
+                           ds_end, dbp, dcp, dap, B, L, H, G, Q, hg, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(P, N, x, dt, A, Bm, Cm, dy, s_in, dfinal, dx, ddt, dA, dB, dC,
-                                   dinit, ds_end, dbp, dcp, dap, B, L, H, Q, hg, s);
+                                   dinit, ds_end, dbp, dcp, dap, B, L, H, G, Q, hg, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,8 +6,12 @@ layout and the same chunking (``q = min(chunk, L)``; the kernel masks the
 ragged last chunk itself, so nothing is padded here). It also takes an
 initial state, so a prefill that continues a cache runs on the kernel too.
 On a CPU tensor it calls the plain version (`ref.ssd_chunked`); on a CUDA
-tensor it launches the kernel or raises. ngroups = 1: B and C are shared
-by every head (the kernel source says more).
+tensor it launches the kernel or raises. B and C come in G groups,
+(B, L, G, N), or (B, L, N) for one group: head h reads group h // (H // G),
+as the reference's ``ssd_chunked`` repeats the groups over the heads, and
+their gradients are summed over each group's heads. The kernels' chunk
+blocks take heads of one group (`_head_group`, the kernel source says
+more).
 
 Two routes, chosen by `route` from dtype and shape before any launch, a
 fixed choice and never a fallback: bf16 at the shapes of `TC_CHUNKS`,
@@ -103,32 +107,52 @@ def _chunk_rows(l: int, chunk: int):
     return [q] * (l // q) + ([l % q] if l % q else [])
 
 
-def work(b: int, l: int, h: int, p: int, n: int, chunk: int, esize: int) -> Tuple[int, int]:
-    """(operations, bytes) of one SSD scan: per (batch, head, chunk of q
-    rows) 2 q^2 N (C B^T) + 2 q^2 P (scores . x dt) + 2 q N P (C state^T) +
-    2 q P N (state increment); x and y, dt, B and C once, the final state."""
+def work(b: int, l: int, h: int, p: int, n: int, chunk: int, esize: int,
+         g: int = 1) -> Tuple[int, int]:
+    """(operations, bytes) of one SSD scan with ``g`` groups of B and C: per
+    (batch, head, chunk of q rows) 2 q^2 N (C B^T) + 2 q^2 P (scores . x dt)
+    + 2 q N P (C state^T) + 2 q P N (state increment); x and y, dt, B and C
+    (each group) once, the final state."""
     rows = _chunk_rows(l, chunk)
     flops = b * h * sum(2 * r * r * (n + p) + 4 * r * n * p for r in rows)
-    nbytes = esize * (2 * b * l * h * p + 2 * b * l * n) + 4 * (b * l * h + h + b * h * p * n)
+    nbytes = esize * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h + b * h * p * n)
     return flops, nbytes
 
 
-def bwd_work(b: int, l: int, h: int, p: int, n: int, chunk: int, esize: int) -> Tuple[int, int]:
-    """(operations, bytes) of one SSD backward: per (batch, head, chunk of q
-    rows) 2 q^2 (2 P + 3 N) (G, dy.x^T, M^T dy, dG B, dG^T C) + 8 q P N (the
-    four state products); x, dy and dx, S_in (f32, one state per chunk), dt
-    and ddt, A and dA, B, C, dB and dC once, as training calls it (no initial
-    state, the final state unused)."""
+def bwd_work(b: int, l: int, h: int, p: int, n: int, chunk: int, esize: int,
+             g: int = 1) -> Tuple[int, int]:
+    """(operations, bytes) of one SSD backward with ``g`` groups of B and C:
+    per (batch, head, chunk of q rows) 2 q^2 (2 P + 3 N) (G, dy.x^T, M^T dy,
+    dG B, dG^T C) + 8 q P N (the four state products); x, dy and dx, S_in
+    (f32, one state per chunk), dt and ddt, A and dA, B, C, dB and dC (each
+    group) once, as training calls it (no initial state, the final state
+    unused)."""
     rows = _chunk_rows(l, chunk)
     flops = b * h * sum(2 * r * r * (2 * p + 3 * n) + 8 * r * p * n for r in rows)
-    nbytes = (esize * (3 * b * l * h * p + 4 * b * l * n) + 4 * b * len(rows) * h * p * n
+    nbytes = (esize * (3 * b * l * h * p + 4 * b * l * g * n) + 4 * b * len(rows) * h * p * n
               + 4 * (2 * b * l * h + 2 * h))
     return flops, nbytes
 
 
+def _groups(Bm) -> int:
+    """G of B or C given as (B, L, G, N), or (B, L, N) for one group."""
+    return Bm.shape[2] if Bm.dim() == 4 else 1
+
+
+def _check_layout(kernel: str, x, Bm, Cm) -> None:
+    """x is (B, L, H, P) with L >= 1; B and C have one shape, (B, L, G, N)
+    with H a multiple of G or (B, L, N): on every device."""
+    require(x.dim() == 4 and x.shape[1] >= 1, f"{kernel}: x must be (B, L, H, P) with L >= 1")
+    require(Bm.dim() in (3, 4) and Bm.shape == Cm.shape,
+            f"{kernel}: B and C must both be (B, L, G, N) or (B, L, N), got {tuple(Bm.shape)} "
+            f"and {tuple(Cm.shape)}")
+    require(x.shape[2] % _groups(Bm) == 0,
+            f"{kernel}: {x.shape[2]} heads do not divide into {_groups(Bm)} groups of B and C")
+
+
 def _work_args(x, Bm, chunk):
     b, l, h, p = x.shape
-    return b, l, h, p, Bm.shape[-1], chunk, x.element_size()
+    return b, l, h, p, Bm.shape[-1], chunk, x.element_size(), _groups(Bm)
 
 
 def route(dtype: torch.dtype, p: int, n: int, q: int) -> str:
@@ -150,8 +174,8 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [
             ptr_t, ptr_t, ptr_t, ptr_t, ptr_t, ptr_t,  # x, dt, A, B, C, init_state
             ptr_t, ptr_t, ptr_t,  # y, final_state, S_in (the tensor-core route's scratch, or null)
-            int_t, int_t, int_t, int_t, int_t, int_t, int_t, int_t,  # B, L, H, P, N, Q, dtype, route
-            ptr_t,  # stream
+            int_t, int_t, int_t, int_t, int_t, int_t,  # B, L, H, G, P, N
+            int_t, int_t, int_t, ptr_t,  # Q, dtype, route, stream
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -165,8 +189,8 @@ def _bwd_fn():
             ptr_t, ptr_t, ptr_t, ptr_t, ptr_t, ptr_t, ptr_t, ptr_t,  # x, dt, A, B, C, dy, S_in, dfinal
             ptr_t, ptr_t, ptr_t, ptr_t, ptr_t, ptr_t,  # dx, ddt, dA, dB, dC, dinit (or null)
             ptr_t, ptr_t, ptr_t, ptr_t,  # scratch: dS at chunk ends, dB, dC, dA partials
-            int_t, int_t, int_t, int_t, int_t, int_t, int_t, int_t,  # B, L, H, P, N, Q, hg, dtype
-            int_t, ptr_t,  # route, stream
+            int_t, int_t, int_t, int_t, int_t, int_t,  # B, L, H, G, P, N
+            int_t, int_t, int_t, int_t, ptr_t,  # Q, hg, dtype, route, stream
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -184,23 +208,27 @@ def bwd_route(dtype: torch.dtype, p: int, n: int, chunk: int, l: int,
     return kernel
 
 
-def _head_group(h: int, nc: int, b: int, device: torch.device) -> int:
-    """Heads per ``ssd_chunk_bwd`` block: `_HG_MAX`, halved while the grid
-    would leave SMs without a block (as the forward's ``ssd_chunk_out``)."""
+def _head_group(h: int, g: int, nc: int, b: int, device: torch.device) -> int:
+    """Heads per ``ssd_chunk_bwd`` block, all of one group: `_HG_MAX`,
+    halved while the grid of ``g`` ceil(rep / HG) x ``nc`` x ``b`` blocks
+    would leave SMs without a block, then at most rep = h / g (the rule of
+    the forward's ``ssd_chunk_out`` in ``csrc/ssd_scan.cu``). At g = 1 it is
+    the one-group grid of ceil(h / HG) blocks per chunk."""
     sms = _sms.get(device.index)
     if sms is None:
         sms = _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    rep = h // g
     hg = _HG_MAX
-    while hg > 1 and -(-h // hg) * nc * b < sms:
+    while hg > 1 and g * -(-rep // hg) * nc * b < sms:
         hg //= 2
-    return hg
+    return min(hg, rep)
 
 
-def _check_args(kernel: str, x, dt, A, Bm, Cm, chunk) -> Tuple[int, int, int, int, int]:
+def _check_args(kernel: str, x, dt, A, Bm, Cm, chunk) -> Tuple[int, int, int, int, int, int]:
     """What the forward and backward kernels assume of x, dt, A, B, C and
-    the chunk on the card; returns (B, L, H, P, N)."""
+    the chunk on the card; returns (B, L, H, P, N, G)."""
     b, l, h, p = x.shape
-    n = Bm.shape[-1]
+    n, g = Bm.shape[-1], _groups(Bm)
     require(x.device.type == "cuda", f"{kernel}: unsupported device {x.device}")
     require(x.dtype in DTYPE_CODE, f"{kernel}: dtype {x.dtype} not supported")
     require(Bm.dtype == x.dtype and Cm.dtype == x.dtype, f"{kernel}: x, B, C dtypes differ")
@@ -211,10 +239,11 @@ def _check_args(kernel: str, x, dt, A, Bm, Cm, chunk) -> Tuple[int, int, int, in
     require(1 <= chunk <= MAX_CHUNK, f"{kernel}: chunk {chunk} not in [1, {MAX_CHUNK}]")
     check_shape(kernel, "dt", dt, (b, l, h))
     check_shape(kernel, "A", A, (h,))
-    check_shape(kernel, "B", Bm, (b, l, n))
-    check_shape(kernel, "C", Cm, (b, l, n))
+    bc = (b, l, g, n) if Bm.dim() == 4 else (b, l, n)
+    check_shape(kernel, "B", Bm, bc)
+    check_shape(kernel, "C", Cm, bc)
     check_tensors(kernel, x.device, ("x", "B", "C"), x=x, dt=dt, A=A, B=Bm, C=Cm)
-    return b, l, h, p, n
+    return b, l, h, p, n, g
 
 
 def _forward(x, dt, A, Bm, Cm, chunk, init_state, kernel, with_s_in):
@@ -223,7 +252,7 @@ def _forward(x, dt, A, Bm, Cm, chunk, init_state, kernel, with_s_in):
     takes it as its scratch either way)."""
     check_no_grad(_K, "ssd takes SSDScanFn when grad is needed", x=x, dt=dt, A=A, B=Bm, C=Cm,
                   init_state=init_state)
-    b, l, h, p, n = _check_args(_K, x, dt, A, Bm, Cm, chunk)
+    b, l, h, p, n, g = _check_args(_K, x, dt, A, Bm, Cm, chunk)
     if init_state is not None:
         check_shape(_K, "init_state", init_state, (b, h, p, n))
         require(init_state.dtype == torch.float32, f"{_K}: init_state must be float32")
@@ -246,7 +275,7 @@ def _forward(x, dt, A, Bm, Cm, chunk, init_state, kernel, with_s_in):
         ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm),
         None if init_state is None else ptr(init_state), ptr(y), ptr(final_state),
         None if s_in is None else ptr(s_in),
-        b, l, h, p, n, q, DTYPE_CODE[x.dtype], _ROUTE_CODE[kernel], stream_ptr(x.device),
+        b, l, h, g, p, n, q, DTYPE_CODE[x.dtype], _ROUTE_CODE[kernel], stream_ptr(x.device),
     )
     if err != 0:
         raise RuntimeError(f"{_K}: kernel launch failed with cudaError {err}")
@@ -259,8 +288,8 @@ def ssd_bwd(
     x: torch.Tensor,  # (B, L, H, P)
     dt: torch.Tensor,  # (B, L, H) f32
     A: torch.Tensor,  # (H,) f32
-    Bm: torch.Tensor,  # (B, L, N)
-    Cm: torch.Tensor,  # (B, L, N)
+    Bm: torch.Tensor,  # (B, L, G, N), or (B, L, N): one group
+    Cm: torch.Tensor,  # as Bm
     s_in: Optional[torch.Tensor],  # (B, NC, H, P, N) f32, the forward's; None on the CPU recomputes it
     dy: torch.Tensor,  # (B, L, H, P), x's dtype
     dfinal: Optional[torch.Tensor] = None,  # (B, H, P, N) f32; None: the final state unused
@@ -274,12 +303,13 @@ def ssd_bwd(
     forward's ``s_in``: the backward kernels of the route `bwd_route` picks
     (one C call, three launches: ``ssd_state_bwd``, ``ssd_chunk_bwd`` and
     ``ssd_bwd_reduce``, with ``_wgmma`` on the tensor-core route), or their
-    plain version on CPU tensors. dinit is None unless ``with_dinit``.
+    plain version on CPU tensors. dB and dC have B's and C's shapes, each
+    group's summed over its heads; dinit is None unless ``with_dinit``.
     ``kernel`` forces a route (to time one against the other). Counts one
     launch per call."""
     check_local(_KB, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, s_in=s_in, dy=dy, dfinal=dfinal,
                 init_state=init_state)
-    require(x.dim() == 4 and x.shape[1] >= 1, f"{_KB}: x must be (B, L, H, P) with L >= 1")
+    _check_layout(_KB, x, Bm, Cm)
     b, l, h, p = x.shape
     if op_stats.ACTIVE is not None:
         with op_stats.kernel(_KB, lambda: bwd_work(*_work_args(x, Bm, chunk))):
@@ -297,7 +327,7 @@ def ssd_bwd(
         return out if with_dinit else (*out[:5], None)
     check_no_grad(_KB, "the backward has no gradient of its own: no double backward",
                   x=x, dt=dt, A=A, B=Bm, C=Cm, s_in=s_in, dy=dy, dfinal=dfinal)
-    b, l, h, p, n = _check_args(_KB, x, dt, A, Bm, Cm, chunk)
+    b, l, h, p, n, g = _check_args(_KB, x, dt, A, Bm, Cm, chunk)
     kernel = bwd_route(x.dtype, p, n, chunk, l, kernel)
     nc = -(-l // q)
     require(s_in is not None, f"{_KB}: s_in, the forward's state at every chunk start, is needed")
@@ -317,17 +347,17 @@ def ssd_bwd(
     dinit = torch.empty((b, h, p, n), **f32) if with_dinit else None
     if b * h == 0:
         return dx.zero_(), ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_(), dinit
-    hg = _head_group(h, nc, b, x.device)
-    ng = -(-h // hg)
+    hg = _head_group(h, g, nc, b, x.device)
+    blocks = g * -(-(h // g) // hg)  # per chunk: each group's heads in blocks of hg
     ds_end = torch.empty((b, nc, h, p, n), **f32)
-    dbp, dcp = (torch.empty((b, nc, ng, q, n), **f32) for _ in range(2))
+    dbp, dcp = (torch.empty((b, nc, blocks, q, n), **f32) for _ in range(2))
     dap = torch.empty((b, nc, h), **f32)
     err = _bwd_fn()(
         ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(dy), ptr(s_in),
         None if dfinal is None else ptr(dfinal),
         ptr(dx), ptr(ddt), ptr(dA), ptr(dB), ptr(dC), None if dinit is None else ptr(dinit),
         ptr(ds_end), ptr(dbp), ptr(dcp), ptr(dap),
-        b, l, h, p, n, q, hg, DTYPE_CODE[x.dtype], _ROUTE_CODE[kernel], stream_ptr(x.device),
+        b, l, h, g, p, n, q, hg, DTYPE_CODE[x.dtype], _ROUTE_CODE[kernel], stream_ptr(x.device),
     )
     if err != 0:
         raise RuntimeError(f"{_KB}: kernel launch failed with cudaError {err}")
@@ -345,6 +375,7 @@ def ssd_fwd(
     chunk start on a CUDA tensor; on a CPU tensor the plain scan, and S_in
     None (the plain backward recomputes it)."""
     check_local(_K, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, init_state=init_state)
+    _check_layout(_K, x, Bm, Cm)
     if op_stats.ACTIVE is not None:
         with op_stats.kernel(_K, lambda: work(*_work_args(x, Bm, chunk))):
             if x.is_meta:
@@ -354,8 +385,7 @@ def ssd_fwd(
             return op_stats.dense(ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
                                           kernel=kernel))
     if x.device.type == "cpu":
-        y, fs = ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None], min(chunk, x.shape[1]),
-                            init_state)
+        y, fs = ssd_chunked(x, dt, A, Bm, Cm, min(chunk, x.shape[1]), init_state)
         return y, fs, None
     return _forward(x, dt, A, Bm, Cm, chunk, init_state, kernel, with_s_in=True)
 
@@ -392,8 +422,8 @@ def ssd(
     x: torch.Tensor,  # (B, L, H, P)
     dt: torch.Tensor,  # (B, L, H) f32, post-softplus
     A: torch.Tensor,  # (H,) f32, negative
-    Bm: torch.Tensor,  # (B, L, N), ngroups = 1
-    Cm: torch.Tensor,  # (B, L, N)
+    Bm: torch.Tensor,  # (B, L, G, N) with H % G == 0, or (B, L, N): one group
+    Cm: torch.Tensor,  # as Bm
     *,
     chunk: int = 128,
     init_state: Optional[torch.Tensor] = None,  # (B, H, P, N) f32; zeros if None
@@ -405,7 +435,7 @@ def ssd(
     route (to time one against the other); a route that cannot take the
     call raises."""
     check_local(_K, x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, init_state=init_state)
-    require(x.dim() == 4 and x.shape[1] >= 1, f"{_K}: x must be (B, L, H, P) with L >= 1")
+    _check_layout(_K, x, Bm, Cm)
     if op_stats.ACTIVE is not None:
         if _needs_grad(x, dt, A, Bm, Cm, init_state):
             return SSDScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk, kernel)
@@ -417,8 +447,7 @@ def ssd(
             return op_stats.dense(ssd(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
                                       kernel=kernel))
     if x.device.type == "cpu":
-        return ssd_chunked(x, dt, A, Bm[:, :, None], Cm[:, :, None], min(chunk, x.shape[1]),
-                           init_state)
+        return ssd_chunked(x, dt, A, Bm, Cm, min(chunk, x.shape[1]), init_state)
     if _needs_grad(x, dt, A, Bm, Cm, init_state):
         return SSDScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk, kernel)
     y, final_state, _ = _forward(x, dt, A, Bm, Cm, chunk, init_state, kernel, with_s_in=False)

@@ -114,8 +114,8 @@ def ssm_forward(
     new_conv = torch.gather(ext, 1, rows[:, :, None].expand(-1, -1, ext.shape[-1]))
 
     xs = conv_out[..., :di].reshape(b, l, h, p)
-    bmat = conv_out[..., di : di + g * n]
-    cmat = conv_out[..., di + g * n :]
+    bmat = conv_out[..., di : di + g * n].reshape(b, l, g, n)  # head i reads group i // (h / g)
+    cmat = conv_out[..., di + g * n :].reshape(b, l, g, n)
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])  # (B, L, H)
     pos = torch.arange(l, device=dev)[None, :, None]
@@ -139,16 +139,32 @@ def _ssd_skip(x, dt, A, Bm, Cm, D, *, chunk: int, init_state=None):
     return y.reshape(*x.shape[:2], -1).to(x.dtype), final_state
 
 
+def _local_groups(Bm, Cm, h: int, h_lo: int, h_loc: int):
+    """B and C (B, L, G, N) cut to what heads [h_lo, h_lo + h_loc) of ``h``
+    read: where they hold whole groups, those groups; where they lie inside
+    one group, that group; otherwise one group per head (an expanded copy).
+    The cut is a view or a gather of the rank's replicated B and C, so their
+    gradient lands where each group was read."""
+    g = Bm.shape[2]
+    rep = h // g
+    if h_loc % rep == 0 or rep % h_loc == 0:
+        lo, hi = h_lo // rep, (h_lo + h_loc - 1) // rep + 1
+        return Bm[:, :, lo:hi], Cm[:, :, lo:hi]
+    idx = torch.arange(h_lo, h_lo + h_loc, device=Bm.device) // rep
+    return Bm[:, :, idx], Cm[:, :, idx]
+
+
 def _ssd_on_mesh(x, dt, A, Bm, Cm, D, *, chunk: int, init_state=None):
     """`_ssd_skip` on DTensors: each rank scans its own batch rows and heads
     through ``local_map`` (the kernel on the card, the plain scan on the
     CPU). The batch stays split where it is; the heads are split over the
     first other mesh dim they divide over (a free slice of replicated
-    operands), B and C stay whole there, and their gradients (and A's and
-    D's over the batch) are summed over the ranks that read them. The skip
-    and the merge of heads run inside, so the gradient reaches them laid
-    out as the heads are. Under an op count (meta tensors) the call is
-    counted once at its global shapes."""
+    operands), B and C (B, L, G, N) stay whole there and each rank scans
+    with the groups its heads read (`_local_groups`), and their gradients
+    (and A's and D's over the batch) are summed over the ranks that read
+    them. The skip and the merge of heads run inside, so the gradient
+    reaches them laid out as the heads are. Under an op count (meta
+    tensors) the call is counted once at its global shapes."""
     b, l, h, p = x.shape
     n = Bm.shape[-1]
     mesh, batch_dims, _ = batch_and_head_dims((x, 0, None), (dt, 0, None), (Bm, 0, None))
@@ -162,9 +178,17 @@ def _ssd_on_mesh(x, dt, A, Bm, Cm, D, *, chunk: int, init_state=None):
     a_grad, bc_grad = lay.grad_of(None, 0, partial_batch=True), lay.grad_of(0, partial_head=True)
 
     def local(*ts):
+        x_loc, bm, cm = ts[0], ts[3], ts[4]
+        if lay.head is not None:
+            h_loc = x_loc.shape[2]
+            bm, cm = _local_groups(bm, cm, h, lay.mesh.get_local_rank(lay.head) * h_loc, h_loc)
+        return _ssd_skip(x_loc, ts[1], ts[2], bm, cm, ts[5], chunk=chunk, init_state=ts[6])
+
+    def counted(*ts):
         return _ssd_skip(*ts[:6], chunk=chunk, init_state=ts[6])
 
-    return kernel_map(local, local, mesh, ops, [xp, xp, a_grad, bc_grad, bc_grad, a_grad, sp], outs)
+    return kernel_map(local, counted, mesh, ops,
+                      [xp, xp, a_grad, bc_grad, bc_grad, a_grad, sp], outs)
 
 
 def ssm_decode_step(

@@ -29,8 +29,9 @@ reference). Chunked prefill is for the attention families only, as in the
 reference (the SSM prefill carries its state through ``ssm_forward``), and
 never into a ring cache (ROADMAP C6). `forward_train` is the training
 forward of every family here (logits of every position). The encdec
-family has its own entry points (`repro_torch.models.encdec`); ngroups > 1
-is outside the ported slices and raises NotImplementedError.
+family has its own entry points (`repro_torch.models.encdec`). The ssm and
+hybrid families take any ``ssm_ngroups`` that divides the SSM heads (else
+ValueError), as the reference's ``jnp.repeat`` of the groups needs.
 """
 from __future__ import annotations
 
@@ -77,9 +78,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (dense, moe, vlm, ssm, hybrid and encdec)"
         )
-    if cfg.family in ("ssm", "hybrid") and cfg.ssm_ngroups != 1:
-        raise NotImplementedError(f"{cfg.name}: ssm_ngroups={cfg.ssm_ngroups} is not ported "
-                                  "(the SSD kernel shares one B/C group across heads)")
+    if cfg.family in ("ssm", "hybrid") and (
+            cfg.ssm_ngroups < 1 or cfg.ssm_num_heads % cfg.ssm_ngroups):
+        raise ValueError(f"{cfg.name}: {cfg.ssm_num_heads} SSM heads do not divide into "
+                         f"ssm_ngroups={cfg.ssm_ngroups} groups of B and C")
     if cfg.family == "hybrid" and cfg.num_layers % cfg.hybrid_period:
         raise ValueError(f"{cfg.name}: hybrid depth {cfg.num_layers} is not a multiple of "
                          f"the period {cfg.hybrid_period}")

@@ -169,6 +169,9 @@ def test_device_rule():
 
 @pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "zamba2-2.7b-smoke"])
 def test_configs_outside_the_slice_raise(arch):
-    # every family is ported; what stays outside is more than one B/C group
-    with pytest.raises(NotImplementedError):
-        build_model(get_config(arch).replace(ssm_ngroups=2))
+    # every family is ported, with any number of B/C groups that divides the
+    # SSM heads; a count that does not (8 heads, 3 or 16 groups) is refused
+    for g in (3, 16):
+        with pytest.raises(ValueError, match="ngroups"):
+            build_model(get_config(arch).replace(ssm_ngroups=g))
+    assert build_model(get_config(arch).replace(ssm_ngroups=8)).cfg.ssm_ngroups == 8

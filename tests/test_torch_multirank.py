@@ -32,7 +32,10 @@ same weights (saved to an ``.npz`` the ranks read) and inputs.
   of its own rows) whose loss is within 2e-5 and every leaf within 1e-4 of
   the unsharded port's.
 - zamba2-2.7b-smoke: a prefill through the SSD scan's ``local_map`` route,
-  within 2e-4 of JAX, and a training step through it.
+  within 2e-4 of JAX, and a training step through it; and at
+  ``ssm_ngroups=2`` (8 heads, 2 a rank on the model axis, inside one group
+  of 4) a prefill of unpadded prompts and 4 greedy decode steps that give
+  JAX's tokens.
 """
 import json
 import os
@@ -148,9 +151,10 @@ def _rank_checks(tmp: str) -> dict:
 
         setattr(layers, f"{name}_attention", spy)
 
-    def load(arch):
-        cfg = get_config(arch).replace(dtype="float32", attn_impl="pallas")
-        with np.load(os.path.join(tmp, f"{arch}.npz")) as z:
+    def load(arch, groups=1):
+        cfg = get_config(arch).replace(dtype="float32", attn_impl="pallas", ssm_ngroups=groups)
+        name = arch if groups == 1 else f"{arch}-g{groups}"
+        with np.load(os.path.join(tmp, f"{name}.npz")) as z:
             params = params_from_jax(_unflat(dict(z)), cfg, device="cpu")
         return cfg, build_model(cfg), params
 
@@ -337,6 +341,21 @@ def _rank_checks(tmp: str) -> dict:
         zstep(zd, init_opt_state(zd), tb)
     out["zamba2_collectives"] = [op_stats.by_mesh_dim(real, mesh),
                                  counted_collectives(zmodel, zcfg, zspecs, zstep, tb, zplan)]
+
+    # zamba2 at 2 groups of B and C: each rank's heads read one group
+    gcfg, gmodel, gparams = load("zamba2-2.7b-smoke", groups=2)
+    gplan = ShardingPlan(mesh, mode="serve")
+    gd = distribute(gparams, param_pspecs(gcfg, gparams, gplan), mesh)
+    with use_activation_sharding(mesh, gplan.batch_axes):
+        logits, kv = gmodel.prefill(gd, {"inputs": toks})
+        cache = gmodel.init_cache(2, MAX_LEN, device="cpu")
+        cache = handoff(gcfg, kv, distribute(cache, cache_pspecs(gcfg, cache, gplan), mesh))
+        tok, pos, gtoks = logits.full_tensor().argmax(-1), torch.full((2,), PROMPT_LEN), []
+        for _ in range(DECODE_STEPS):
+            gtoks.append(tok.tolist())
+            logits, cache = gmodel.decode(gd, tok[:, None], pos, cache)
+            tok, pos = logits.full_tensor().argmax(-1), pos + 1
+    out["zamba2_g2_tokens"] = gtoks
     return out
 
 
@@ -385,6 +404,23 @@ def _jax_reference(tmp: Path) -> dict:
         _, _, met = step(params, jopt.init_opt_state(params),
                          {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()})
         ref["loss"] = float(met["loss"])
+    # zamba2 at 2 groups: unpadded prompts (the reference keeps padding in
+    # its conv window, ROADMAP C2), then greedy decode from its own cache
+    arch = "zamba2-2.7b-smoke"
+    cfg = jax_get_config(arch).replace(dtype="float32", ssm_ngroups=2)
+    model = jax_build_model(cfg)
+    params = model.init(jax.random.key(0))
+    np.savez(tmp / f"{arch}-g2.npz", **_flat(jax.tree.map(np.asarray, params)))
+    toks, _ = _inputs(cfg.vocab_size)
+    logits, (rec, (k, v)) = model.prefill(params, dict(inputs=jnp.asarray(toks, jnp.int32)))
+    pad = ((0, 0), (0, 0), (0, MAX_LEN - k.shape[2]), (0, 0), (0, 0))
+    cache = dict(conv=rec["conv"], state=rec["state"], k=jnp.pad(k, pad), v=jnp.pad(v, pad))
+    tok, pos, ref["zamba2_g2_tokens"] = jnp.argmax(logits, -1), PROMPT_LEN, []
+    for _ in range(DECODE_STEPS):
+        ref["zamba2_g2_tokens"].append(np.asarray(tok).tolist())
+        logits, cache = model.decode(params, tok[:, None].astype(jnp.int32),
+                                     jnp.full((2,), pos, jnp.int32), cache)
+        tok, pos = jnp.argmax(logits, -1), pos + 1
     return ref
 
 
@@ -506,6 +542,11 @@ def test_zamba2_prefill_through_the_ssd_route_matches_jax(run):
     got, ref = run
     np.testing.assert_allclose(np.asarray(got["zamba2_logits"]), ref["zamba2_logits"],
                                rtol=LOGIT_TOL, atol=LOGIT_TOL)
+
+
+def test_zamba2_with_two_groups_on_the_mesh_gives_the_jax_tokens(run):
+    got, ref = run
+    assert got["zamba2_g2_tokens"] == ref["zamba2_g2_tokens"]
 
 
 if __name__ == "__main__":

@@ -10,9 +10,14 @@ rounding of both bf16 routes, emulated in plain PyTorch (the state at each
 chunk start as the forward's tensor-core route writes it; the scalar
 kernels round dx, dB and dC, the tensor-core kernels also their products'
 operands, ``ssd_tensor_core_bwd_emulation``), within ``SSD_BWD_BF16_REL``
-of the f32 backward, the limit ``chip_smoke.py`` holds the kernels to. The
-kernels themselves are held against the plain backward on the card by
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` (marked ``cuda``).
+of the f32 backward, the limit ``chip_smoke.py`` holds the kernels to.
+Several groups of B and C: the plain backward against ``jax.vjp`` at G = 2,
+G = H and an odd number of heads per group (dB and dC summed over each
+group's heads), ``SSDScanFn`` on the CPU, both bf16 emulations within the
+limit of the JAX gradient, and what the C entries get (G, the heads per
+block, the partials' blocks). The kernels themselves are held against the
+plain backward on the card by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` (marked ``cuda``).
 
 The reference has no gradient of its Pallas scan and trains on its plain
 ``ssd_chunked`` under XLA's autodiff, so that is the oracle."""
@@ -251,7 +256,7 @@ def test_the_backward_takes_the_route_of_its_chunk(dtype, monkeypatch):
         return 0
 
     monkeypatch.setattr(ops, "_check_args", lambda k, x, dt, A, Bm, Cm, chunk: (
-        *x.shape, Bm.shape[-1]))
+        *x.shape, Bm.shape[-1], 1))
     monkeypatch.setattr(ops, "check_tensors", lambda *a, **k: None)
     monkeypatch.setattr(ops, "ptr", lambda t: 0)
     monkeypatch.setattr(ops, "stream_ptr", lambda d: 0)
@@ -269,7 +274,7 @@ def test_the_backward_takes_the_route_of_its_chunk(dtype, monkeypatch):
             want = ops.route(dtype, p, n, q) if kernel is None else ops.SCALAR
             before = dict(ssd_bwd.route_launches)
             ssd_bwd(*args, chunk=chunk, kernel=kernel)
-            assert calls[-1][23] == q and calls[-1][-2] == ops._ROUTE_CODE[want], (b, l, p, n)
+            assert calls[-1][24] == q and calls[-1][-2] == ops._ROUTE_CODE[want], (b, l, p, n)
             assert ssd_bwd.route_launches[want] == before[want] + 1
         if ops.route(dtype, p, n, q) == ops.SCALAR:
             with pytest.raises(ValueError, match="tensor_core route does not take"):
@@ -292,3 +297,152 @@ def test_the_profile_files_the_ssd_kernels_under_their_own_groups():
                  "ssd_bwd_reduce<__nv_bfloat16>", "tc::ssd_state_bwd_wgmma<128, 64, 64>",
                  "tc::ssd_chunk_bwd_wgmma<64, 32, 128>"):
         assert kernel_group(ns + name + "(...)") == "ssd_scan_bwd", name
+
+
+# ------------------------------------------------ several groups of B and C
+
+# (B, L, H, P, N, chunk, G, initial state): two groups, one head a group, 3
+# heads a group (odd), 2 heads a group with L below one chunk
+GROUP_CASES = {
+    "g2-ragged-init": (2, 100, 4, 16, 16, 32, 2, True),
+    "g-equals-h": (1, 90, 4, 32, 16, 32, 4, False),
+    "rep3-init": (2, 70, 6, 16, 32, 32, 2, True),
+    "rep2-l-below-q-init": (1, 50, 6, 16, 16, 64, 3, True),
+}
+# the tensor-core route's shapes at G > 1: N = 64 and N = 128 (its split passes)
+GROUP_ROUTE_CASES = {
+    "q128-p64-n64-g2-init": (2, 300, 4, 64, 64, 128, 2, True),
+    "q64-p32-n128-rep3": (1, 200, 6, 32, 128, 64, 2, False),
+    "q128-p64-n32-g-equals-h-init": (1, 150, 4, 64, 32, 128, 4, True),
+}
+
+
+def _grouped(rng, b, l, h, p, n, g):
+    x, dt, A, _, _, s0, dy, dfinal = _inputs(rng, b, l, h, p, n)
+    Bm = (rng.standard_normal((b, l, g, n)) * 0.3).astype(np.float32)
+    Cm = (rng.standard_normal((b, l, g, n)) * 0.3).astype(np.float32)
+    return x, dt, A, Bm, Cm, s0, dy, dfinal
+
+
+def _jax_grads(x, dt, A, Bm, Cm, s0, dy, dfinal, q):
+    _, vjp = jax.vjp(lambda *a: js.ssd_chunked(*a[:5], q, a[5]),
+                     *map(jnp.asarray, (x, dt, A, Bm, Cm, s0)))
+    return vjp((jnp.asarray(dy), jnp.asarray(dfinal)))
+
+
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_grouped_plain_backward_matches_jax_vjp(case, rng):
+    """Every gradient at G > 1, dB and dC (B, L, G, N) each group's sum over
+    its heads, from recomputed states and from given ones."""
+    b, l, h, p, n, chunk, g, with_s0 = GROUP_CASES[case]
+    x, dt, A, Bm, Cm, s0, dy, dfinal = _grouped(rng, b, l, h, p, n, g)
+    if not with_s0:
+        s0 = np.zeros_like(s0)
+    q = min(chunk, l)
+    ref = _jax_grads(x, dt, A, Bm, Cm, s0, dy, dfinal, q)
+    tx, tdt, tA, tB, tC, ts0, tdy, tdf = _t(x, dt, A, Bm, Cm, s0, dy, dfinal)
+    init = ts0 if with_s0 else None
+    got = ssd_chunked_bwd(tx, tdt, tA, tB, tC, q, init, None, tdy, tdf)
+    assert got[3].shape == tB.shape and got[4].shape == tC.shape
+    for name, gr, r in zip(NAMES, got, ref, strict=True):
+        _close(gr, r, name)
+    s_in = torch.stack([ts0 if with_s0 else torch.zeros_like(ts0)] + [
+        ssd_chunked(tx[:, :c * q], tdt[:, :c * q], tA, tB[:, :c * q], tC[:, :c * q], q, init)[1]
+        for c in range(1, -(-l // q))], dim=1)
+    got = ssd_chunked_bwd(tx, tdt, tA, tB, tC, q, init, s_in, tdy, tdf)
+    for name, gr, r in zip(NAMES, got, ref, strict=True):
+        _close(gr, r, name)
+
+
+def test_grouped_ssd_scan_fn_on_cpu_matches_autograd_of_the_plain_scan(rng):
+    b, l, h, p, n, chunk, g = 2, 100, 6, 16, 32, 32, 2
+    x, dt, A, Bm, Cm, s0, dy, dfinal = _grouped(rng, b, l, h, p, n, g)
+    leaves = [t.requires_grad_() for t in _t(x, dt, A, Bm, Cm, s0)]
+    tdy, tdf = _t(dy, dfinal)
+
+    def loss(y, fs):
+        return (y * tdy).sum() + (fs * tdf).sum()
+
+    ref = torch.autograd.grad(loss(*ssd_chunked(*leaves[:5], chunk, leaves[5])), leaves)
+    got = torch.autograd.grad(loss(*SSDScanFn.apply(*leaves, chunk, None)), leaves)
+    for name, gr, r in zip(NAMES, got, ref, strict=True):
+        assert gr.shape == r.shape
+        _close(gr, r.numpy(), name)
+
+
+@pytest.mark.parametrize("case", list(GROUP_ROUTE_CASES))
+def test_grouped_bf16_emulations_are_within_the_limit_of_jax(case, rng):
+    """Both bf16 routes' rounding written out at G > 1 (the scalar kernels
+    from the tensor-core forward's states; the tensor-core kernels' operands
+    too): every gradient within `SSD_BWD_BF16_REL` in relative norm of the
+    JAX gradient in f32 on the same bf16 values."""
+    b, l, h, p, n, chunk, g, with_s0 = GROUP_ROUTE_CASES[case]
+    x, dt, A, Bm, Cm, s0, dy, dfinal = _grouped(rng, b, l, h, p, n, g)
+    bf = torch.bfloat16
+    x, Bm, Cm, dy = (torch.from_numpy(a).to(bf) for a in (x, Bm, Cm, dy))
+    s0 = s0 if with_s0 else np.zeros_like(s0)
+    ref = _jax_grads(x.float().numpy(), dt, A, Bm.float().numpy(), Cm.float().numpy(), s0,
+                     dy.float().numpy(), dfinal, chunk)
+    tdt, tA, ts0, tdf = _t(dt, A, s0, dfinal)
+    init = ts0 if with_s0 else None
+    assert ops.bwd_route(bf, p, n, chunk, l) == ops.TENSOR_CORE
+    s_in = ssd_tensor_core_states(x, tdt, tA, Bm, chunk, init)
+    for emu in (ssd_chunked_bwd(x, tdt, tA, Bm, Cm, chunk, init, s_in, dy, tdf),
+                ssd_tensor_core_bwd_emulation(x, tdt, tA, Bm, Cm, chunk, init, None, dy, tdf)):
+        assert emu[3].shape == Bm.shape and emu[3].dtype == bf
+        for name, e, r in zip(GRADS, emu, ref, strict=True):
+            r = np.asarray(r, np.float32)
+            rel = float(np.linalg.norm(e.float().numpy() - r) / np.linalg.norm(r))
+            assert rel <= SSD_BWD_BF16_REL, (name, rel)
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 6])
+def test_the_c_entries_get_the_groups(g, monkeypatch):
+    """Forward and backward off the CPU (meta tensors stand in for the card,
+    the C entries replaced by recorders, 132 SMs) hand the C entries G,
+    heads per block within one group, and partials of G ceil(rep / hg)
+    blocks a chunk; the block rule at G = 1 is the one-group rule."""
+    fwd, bwd = [], []
+
+    class Lib:
+        @staticmethod
+        def repro_ssd_scan(*args):
+            fwd.append(args)
+            return 0
+
+    def entry(*args):
+        bwd.append(args)
+        return 0
+
+    monkeypatch.setattr(ops, "_check_args", lambda k, x, dt, A, Bm, Cm, chunk: (
+        *x.shape, Bm.shape[-1], ops._groups(Bm)))
+    monkeypatch.setattr(ops, "check_tensors", lambda *a, **k: None)
+    monkeypatch.setattr(ops, "ptr", lambda t: t.shape)  # the scratch's shape, for the check
+    monkeypatch.setattr(ops, "stream_ptr", lambda d: 0)
+    monkeypatch.setattr(ops, "_lib", lambda: Lib)
+    monkeypatch.setattr(ops, "_bwd_fn", lambda: entry)
+    monkeypatch.setitem(ops._sms, None, 132)
+
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dt)
+
+    bf = torch.bfloat16
+    for b, l, h, chunk in ((4, 2048, 6, 128), (1, 300, 6, 64), (2, 64, 12, 64)):
+        p, n, q = 64, 64, min(chunk, l)
+        nc = -(-l // q)
+        args = (meta(b, l, h, p, dt=bf), meta(b, l, h), meta(h), meta(b, l, g, n, dt=bf),
+                meta(b, l, g, n, dt=bf))
+        with torch.no_grad():
+            ops.ssd(*args, chunk=chunk)
+        assert fwd[-1][12] == g and fwd[-1][11] == h
+        ops.ssd_bwd(*args, meta(b, nc, h, p, n), meta(b, l, h, p, dt=bf), chunk=chunk)
+        call = bwd[-1]
+        assert call[20] == h and call[21] == g
+        hg, rep = call[25], h // g
+        assert 1 <= hg <= rep
+        assert call[15] == (b, nc, g * -(-rep // hg), q, n)  # the dB partials
+        if g == 1:  # the one-group rule: 8 heads, halved while the grid leaves SMs idle
+            old = 8
+            while old > 1 and -(-h // old) * nc * b < 132:
+                old //= 2
+            assert -(-h // hg) == -(-h // old)

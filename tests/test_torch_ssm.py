@@ -10,8 +10,13 @@ Mamba2 layers (``gated_rms_norm``, ``causal_conv``, ``ssm_forward``,
 The tensor-core route's rounding points, written out in
 ``ref.ssd_tensor_core_emulation``, are held against JAX ``ssd_chunked`` in
 f32 within the route's relative-norm limit, and ``ops.route`` sends the
-serving shapes to that route. The CUDA kernels themselves are held against
-the plain version on the card by chip_smoke.py.
+serving shapes to that route. Several groups of B and C (``ssm_ngroups``):
+the scan and the emulation at G = 2, G = H and an odd number of heads per
+group, with an initial state, the layers at G = 2 and 8, the refusal of a
+G that does not divide the heads, the mesh's cut of the groups, and the
+bytes ``work`` and ``bwd_work`` count (the kernel table's bounds). The CUDA
+kernels themselves are held against the plain version on the card by
+chip_smoke.py.
 """
 import pytest
 
@@ -250,3 +255,150 @@ def test_init_ssm_params_follow_the_reference_distributions():
     assert float(a.min()) >= 1.0 and float(a.max()) <= 16.0
     assert torch.equal(p["D"], torch.ones_like(p["D"])) and not p["norm"].any()
     assert abs(float(p["conv_w"].float().std()) - 0.5) < 0.02  # N(0, 1) / sqrt(W = 4)
+
+
+# ------------------------------------------------ several groups of B and C
+
+# (B, L, H, P, N, chunk, G): two groups; one head a group (G = H); 3 heads a
+# group, odd; L below one chunk with 2 heads a group
+GROUP_CASES = [
+    (2, 100, 4, 16, 16, 32, 2),
+    (1, 90, 4, 32, 16, 32, 4),
+    (2, 70, 6, 16, 32, 32, 2),
+    (1, 50, 6, 16, 16, 64, 3),
+]
+
+
+def _grouped_inputs(rng, b, l, h, p, n, g):
+    x, dt, A, _, _ = _ssd_inputs(rng, b, l, h, p, n)
+    Bm = (rng.standard_normal((b, l, g, n)) * 0.3).astype(np.float32)
+    Cm = (rng.standard_normal((b, l, g, n)) * 0.3).astype(np.float32)
+    s0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return x, dt, A, Bm, Cm, s0
+
+
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_grouped_ssd_matches_jax_ssd_chunked(case, rng):
+    """Head h reads group h // (H // G), as the reference's jnp.repeat."""
+    b, l, h, p, n, chunk, g = case
+    x, dt, A, Bm, Cm, s0 = _grouped_inputs(rng, b, l, h, p, n, g)
+    yr, fsr = js.ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)), min(chunk, l),
+                             jnp.asarray(s0))
+    y, fs = ssd(*_t(x, dt, A, Bm, Cm), chunk=chunk, init_state=torch.from_numpy(s0))
+    np.testing.assert_allclose(_np(y), np.asarray(yr), **SSD_TOL)
+    np.testing.assert_allclose(_np(fs), np.asarray(fsr), **SSD_TOL)
+
+
+@pytest.mark.parametrize("case", [(2, 300, 4, 64, 64, 128, 2), (1, 200, 6, 32, 128, 64, 2),
+                                  (1, 150, 4, 64, 32, 128, 4)])
+def test_grouped_tensor_core_emulation_within_the_limit_of_jax(case, rng):
+    """The tensor-core route's rounding points at G > 1 (the scores of each
+    group, read by its heads) keep y and the final state within
+    TC_REL_LIMIT of the JAX scan in f32 on the same bf16 values."""
+    b, l, h, p, n, chunk, g = case
+    x, dt, A, Bm, Cm, s0 = _grouped_inputs(rng, b, l, h, p, n, g)
+    x, Bm, Cm = (_np(torch.from_numpy(a).bfloat16()) for a in (x, Bm, Cm))
+    yr, fsr = js.ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk, jnp.asarray(s0))
+    xt, dtt, At, Bt, Ct = _t(x, dt, A, Bm, Cm)
+    y, fs = ssd_tensor_core_emulation(xt.bfloat16(), dtt, At, Bt.bfloat16(), Ct.bfloat16(), chunk,
+                                      torch.from_numpy(s0))
+    assert _rel(y, yr) <= TC_REL_LIMIT and _rel(fs, fsr) <= TC_REL_LIMIT
+    assert _rel(y, yr) > 1e-4
+
+
+def test_one_group_takes_either_layout(rng):
+    """(B, L, N) and (B, L, 1, N) are the same scan."""
+    x, dt, A, Bm, Cm = _t(*_ssd_inputs(rng, 2, 40, 3, 16, 16))
+    y, fs = ssd(x, dt, A, Bm, Cm, chunk=16)
+    y1, fs1 = ssd(x, dt, A, Bm[:, :, None], Cm[:, :, None], chunk=16)
+    assert torch.equal(y, y1) and torch.equal(fs, fs1)
+
+
+@pytest.mark.parametrize("shapes", [((1, 8, 3, 16), (1, 8, 3, 16)),  # 6 heads, 3 groups: fine
+                                    ((1, 8, 4, 16), (1, 8, 4, 16)),  # 6 heads, 4 groups
+                                    ((1, 8, 2, 16), (1, 8, 16))])  # B and C laid out apart
+def test_ssd_refuses_groups_it_cannot_read(shapes, rng):
+    x, dt, A, _, _ = _t(*_ssd_inputs(rng, 1, 8, 6, 16, 16))
+    Bm, Cm = torch.zeros(shapes[0]), torch.zeros(shapes[1])
+    if shapes[0] == shapes[1] and 6 % shapes[0][2] == 0:
+        assert ssd(x, dt, A, Bm, Cm, chunk=8)[0].shape == x.shape
+        return
+    with pytest.raises(ValueError, match="groups|B and C"):
+        ssd(x, dt, A, Bm, Cm, chunk=8)
+
+
+@pytest.fixture(scope="module", params=[2, 8])
+def grouped_block(request):
+    """`block` at ssm_ngroups 2 and 8 (8 heads: 4 and 1 a group)."""
+    g = request.param
+    jcfg = jax_get_config("mamba2-130m-smoke").replace(dtype="float32", ssm_ngroups=g)
+    cfg = get_config("mamba2-130m-smoke").replace(dtype="float32", ssm_ngroups=g)
+    jp = js.init_ssm_params(jax.random.key(0), jcfg, jnp.float32)
+    tp = {k: _tensor(np.asarray(v), torch.device("cpu")) for k, v in jp.items()}
+    return jcfg, cfg, jp, tp
+
+
+def test_grouped_ssm_forward_and_decode_step_match_jax(grouped_block, rng):
+    """The layer with several groups: the scan from a cache, then one
+    recurrent step from its cache, each against JAX within 2e-4."""
+    jcfg, cfg, jp, tp = grouped_block
+    b, l = 2, 37
+    x = (rng.standard_normal((b, l, cfg.d_model)) * 0.3).astype(np.float32)
+    conv = rng.standard_normal((b, cfg.ssm_conv_width - 1, ts.conv_channels(cfg)))
+    state = rng.standard_normal((b, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim))
+    conv, state = conv.astype(np.float32), state.astype(np.float32)
+    yr, cr = js.ssm_forward(jp, jnp.asarray(x), jcfg,
+                            init_cache=dict(conv=jnp.asarray(conv), state=jnp.asarray(state)))
+    y, c = ts.ssm_forward(tp, torch.from_numpy(x), cfg,
+                          init_cache=dict(conv=torch.from_numpy(conv),
+                                          state=torch.from_numpy(state)))
+    np.testing.assert_allclose(_np(y), np.asarray(yr), **MODEL_TOL)
+    for k in ("conv", "state"):
+        np.testing.assert_allclose(_np(c[k]), np.asarray(cr[k]), **MODEL_TOL)
+    step = (rng.standard_normal((b, 1, cfg.d_model)) * 0.3).astype(np.float32)
+    yr, cr = js.ssm_decode_step(jp, jnp.asarray(step), jcfg, cr)
+    y, c = ts.ssm_decode_step(tp, torch.from_numpy(step), cfg, c)
+    np.testing.assert_allclose(_np(y), np.asarray(yr), **MODEL_TOL)
+    np.testing.assert_allclose(_np(c["state"]), np.asarray(cr["state"]), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("h,g,h_loc", [(8, 2, 2), (8, 2, 4), (8, 8, 2), (8, 1, 4), (12, 2, 4),
+                                       (12, 4, 2), (12, 3, 6), (24, 8, 4)])
+def test_a_rank_scans_with_the_groups_its_heads_read(h, g, h_loc):
+    """`_local_groups`: each rank's cut of B and C, read by its heads as
+    the scan reads groups (local head k reads local group k // (h_loc //
+    groups)), gives every head the group the whole scan gives it: whole
+    groups, heads inside one group, or (12 heads, 3 groups over 4 heads a
+    rank; 24 heads, 8 groups) one expanded group per head."""
+    Bm = torch.arange(2 * 3 * g * 4, dtype=torch.float32).reshape(2, 3, g, 4)
+    Cm = -Bm
+    rep = h // g
+    for lo in range(0, h, h_loc):
+        bm, cm = ts._local_groups(Bm, Cm, h, lo, h_loc)
+        assert h_loc % bm.shape[2] == 0 and bm.shape == cm.shape
+        for k in range(h_loc):
+            local = k // (h_loc // bm.shape[2])
+            assert torch.equal(bm[:, :, local], Bm[:, :, (lo + k) // rep])
+            assert torch.equal(cm[:, :, local], Cm[:, :, (lo + k) // rep])
+        if h_loc % rep and rep % h_loc:
+            assert bm.shape[2] == h_loc  # expanded
+
+
+@pytest.mark.parametrize("arch,g,fwd_ms,bwd_ms", [
+    ("zamba2-2.7b", 1, 0.0531, 0.1030), ("zamba2-2.7b", 8, 0.0574, 0.1117),
+    ("mamba2-130m", 1, 0.0175, 0.0405), ("mamba2-130m", 8, 0.0262, 0.0581)])
+def test_work_counts_the_bytes_of_every_group(arch, g, fwd_ms, bwd_ms):
+    """The bounds of the kernel table (roofline.analysis.bound on hw.H100)
+    at the ssm phase's B = 4, L = 2048 in bf16: B and C (and dB, dC) bytes
+    grow with G, the operations do not."""
+    from repro_torch.kernels.ssd_scan.ops import bwd_work, work
+    from repro_torch.roofline.analysis import bound
+
+    cfg = get_config(arch)
+    shape = (4, 2048, cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_dim, cfg.ssm_chunk, 2)
+    for fn, want in ((work, fwd_ms), (bwd_work, bwd_ms)):
+        ms, by = bound(*fn(*shape, g), torch.bfloat16)
+        assert round(ms, 4) == want and by == "bytes", (fn.__name__, ms)
+        assert fn(*shape, g)[0] == fn(*shape)[0]
+        assert fn(*shape, g)[1] - fn(*shape)[1] == (2 if fn is work else 4) * 2 * 4 * 2048 * (
+            g - 1) * cfg.ssm_state_dim

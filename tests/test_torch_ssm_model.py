@@ -2,8 +2,10 @@
 weights: bridged ``mamba2-130m-smoke`` and ``zamba2-2.7b-smoke`` f32
 parameters, prefill logits and the whole prefill cache tree within 2e-4,
 then 8 greedy decode steps from that tree with logits within 2e-4 and equal
-tokens; the parameter and cache structure; and the two faults of the
-reference the port repairs (ROADMAP C2, C3).
+tokens; the parameter and cache structure; the two faults of the
+reference the port repairs (ROADMAP C2, C3); and both models with several
+groups of B and C (``ssm_ngroups`` 2, 4 and 8 over their 8 heads): prefill
+logits and cache within 2e-4 and 8 greedy tokens equal to JAX's.
 
 Cross-package tests keep prompts unpadded (C2 makes padded ones differ on
 purpose) and hand the prefill's own cache tree to decode on both sides, so
@@ -167,9 +169,70 @@ def test_bridge_checks_the_layer_axes(pairs):
 
 
 def test_unported_variants_raise(pairs):
+    # several groups are ported (below); a count that does not divide the
+    # heads is refused, as the reference fails inside jnp.repeat
     _, cfg, _, tp = pairs["mamba2-130m-smoke"]
-    with pytest.raises(NotImplementedError, match="ngroups"):
-        build_model(cfg.replace(ssm_ngroups=2))
+    with pytest.raises(ValueError, match="ngroups"):
+        build_model(cfg.replace(ssm_ngroups=3))
     cache = build_model(cfg).init_cache(1, 16, device="cpu")
     with pytest.raises(NotImplementedError, match="chunked prefill"):
         tt.chunk_prefill_step(tp, torch.zeros(1, 8, dtype=torch.long), [0], [8], cfg, cache)
+
+
+GROUPS = [2, 4, 8]  # every G > 1 that divides the smoke models' 8 heads
+
+
+@pytest.fixture(scope="module")
+def grouped_pairs():
+    """(arch, G) -> the `pairs` tuple of the arch at ssm_ngroups=G."""
+    out = {}
+    for name in ARCHS:
+        for g in GROUPS:
+            jcfg = jax_get_config(name).replace(dtype="float32", ssm_ngroups=g)
+            cfg = get_config(name).replace(dtype="float32", ssm_ngroups=g)
+            jp = jax_build_model(jcfg).init(jax.random.key(0))
+            out[name, g] = (jcfg, cfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), cfg,
+                                                           device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grouped_prefill_and_greedy_decode_match_jax(grouped_pairs, arch, g, rng):
+    """Prefill logits and the cache tree within 2e-4, then 8 greedy steps
+    from each side's own tree: logits within 2e-4 and the same tokens."""
+    jcfg, cfg, jp, tp = grouped_pairs[arch, g]
+    assert cfg.ssm_num_heads // g * g == cfg.ssm_num_heads
+    jm, tm = jax_build_model(jcfg), build_model(cfg)
+    s, n_new = 21, 8
+    toks = rng.integers(2, cfg.vocab_size, (2, s))
+    jl, jkv = jm.prefill(jp, dict(inputs=jnp.asarray(toks, jnp.int32)))
+    tl, tkv = tm.prefill(tp, dict(inputs=torch.tensor(toks)))
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **LOGIT_TOL)
+    for a, t in zip(jax.tree.leaves(jkv), jax.tree.leaves(tkv), strict=True):
+        np.testing.assert_allclose(_np(t), np.asarray(a), **LOGIT_TOL)
+    jc = _jax_decode_cache(jcfg, jkv, s + n_new)
+    tc = tt.handoff(cfg, tkv, tm.init_cache(2, s + n_new, device="cpu"))
+    for step in range(n_new):
+        jtok, ttok = np.asarray(jnp.argmax(jl, -1)), torch.argmax(tl, -1)
+        assert ttok.tolist() == jtok.tolist(), f"step {step}"
+        pos = np.full((2,), s + step)
+        jl, jc = jm.decode(jp, jnp.asarray(jtok[:, None], jnp.int32), jnp.asarray(pos, jnp.int32),
+                           jc)
+        tl, tc = tm.decode(tp, ttok[:, None], torch.tensor(pos), tc)
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("g", GROUPS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grouped_param_tree_matches_jax_param_struct(arch, g):
+    """The in_proj and conv widths of G groups: the port's init, its
+    param_struct and count_params equal JAX's."""
+    cfg = get_config(arch).replace(ssm_ngroups=g)
+    model = build_model(cfg)
+    js = jax_build_model(jax_get_config(arch).replace(ssm_ngroups=g)).param_struct()
+    jstruct = jax.tree.map(lambda a: (a.shape, str(a.dtype)), js)
+    for tree in (model.init(0, device="cpu"), model.param_struct()):
+        assert jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).removeprefix("torch.")),
+                            tree) == jstruct
+    assert cfg.count_params() == jax_get_config(arch).replace(ssm_ngroups=g).count_params()

@@ -71,17 +71,22 @@ def _np(t):
     return t.detach().float().numpy()
 
 
-def _jax_model(arch):
-    """(jax model, jax f32 params, their numpy copy), cached per arch."""
-    if arch not in _JAX:
-        jm = jax_build_model(jax_get_config(arch).replace(dtype="float32"))
+def _jax_model(arch, groups=None):
+    """(jax model, jax f32 params, their numpy copy), cached per arch (and
+    ``ssm_ngroups``, where given)."""
+    key = arch if groups is None else (arch, groups)
+    if key not in _JAX:
+        cfg = jax_get_config(arch).replace(dtype="float32")
+        jm = jax_build_model(cfg if groups is None else cfg.replace(ssm_ngroups=groups))
         jp = jm.init(jax.random.key(0))
-        _JAX[arch] = (jm, jp, jax.tree.map(np.asarray, jp))
-    return _JAX[arch]
+        _JAX[key] = (jm, jp, jax.tree.map(np.asarray, jp))
+    return _JAX[key]
 
 
-def _port(arch, np_params, impl="auto"):
+def _port(arch, np_params, impl="auto", groups=None):
     cfg = get_config(arch).replace(dtype="float32", attn_impl=impl)
+    if groups is not None:
+        cfg = cfg.replace(ssm_ngroups=groups)
     return build_model(cfg), params_from_jax(np_params, cfg, device="cpu")
 
 
@@ -232,6 +237,26 @@ def test_loss_and_grads_match_jax(arch, impl):
     loss, grads = tts.loss_and_grad_accum(model, params, _torch_batch(_batch(arch, seq)), 1)
     assert abs(float(loss) - jloss) <= LOSS_TOL, (float(loss), jloss)
     jflat, tflat = _flat(jgrads), _flat(grads)
+    assert sorted(jflat) == sorted(tflat)
+    for name, jg in jflat.items():
+        diff = np.linalg.norm(_np(tflat[name]) - jg)
+        assert diff <= GRAD_REL * max(np.linalg.norm(jg), 1e-6), (name, diff, np.linalg.norm(jg))
+
+
+@pytest.mark.parametrize("groups", [2, 4, 8])
+@pytest.mark.parametrize("arch", ["mamba2-130m-smoke", "zamba2-2.7b-smoke"])
+def test_grouped_loss_and_grads_match_jax(arch, groups):
+    """The SSM families with several groups of B and C (8 heads: 4, 2 and 1
+    a group), the scan under autograd of its plain version (the CPU path of
+    `ssd`): the loss and every gradient leaf against JAX's."""
+    seq = TRAIN_ARCHS[arch]
+    jm, jp, np_params = _jax_model(arch, groups)
+    b = _batch(arch, seq)
+    jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss))(jp, jax.tree.map(jnp.asarray, b))
+    model, params = _port(arch, np_params, "pallas", groups)
+    loss, grads = tts.loss_and_grad_accum(model, params, _torch_batch(b), 1)
+    assert abs(float(loss) - float(jloss)) <= LOSS_TOL, (float(loss), float(jloss))
+    jflat, tflat = _flat(jax.tree.map(np.asarray, jgrads)), _flat(grads)
     assert sorted(jflat) == sorted(tflat)
     for name, jg in jflat.items():
         diff = np.linalg.norm(_np(tflat[name]) - jg)
