@@ -122,3 +122,35 @@ def test_the_torch_draw_rule_catches_its_cases(tmp_path):
     )
     lines = [int(f.split(":")[1].split()[0]) for f in _torch_draw_findings(src, "draws.py")]
     assert lines == [3, 5, 6, 8, 9]
+
+
+def _negative_control(tmp_path: Path) -> Path:
+    (tmp_path / "pyproject.toml").write_text("[project]\nname='fixture'\n")
+    bad = tmp_path / "src" / "repro_torch" / "workloads" / "bad.py"
+    bad.parent.mkdir(parents=True)
+    bad.write_text("import time\nimport numpy as np\nt = time.monotonic()\nx = np.random.rand()\n")
+    return tmp_path
+
+
+@pytest.mark.parametrize("tree", ["committed", "negative_control"])
+def test_the_ports_own_checkers_equal_the_moved_ones(port_scopes, tmp_path, tree):
+    """``repro_torch.analysis`` gives the findings of the reference's
+    checkers moved onto the port, on the committed tree and on the negative
+    control above; its RPA002 flags the lines the torch-draw rule here flags."""
+    from repro_torch.analysis import analyze as port_analyze
+
+    root = ROOT if tree == "committed" else _negative_control(tmp_path)
+    src = root / "src" / ("repro_torch" if tree == "committed" else "")
+    moved = analyze([str(src)], root=root, select=CODES)
+    own = port_analyze([str(src)], root=root, select=CODES)
+    assert [(f.code, f.file, f.line) for f in own] == [(f.code, f.file, f.line) for f in moved]
+    assert len(own) == (0 if tree == "committed" else 2)
+
+    draws = tmp_path / "src" / "repro_torch" / "policies" / "draws.py"
+    draws.parent.mkdir(parents=True, exist_ok=True)
+    draws.write_text("import torch\na = torch.rand(2)\nb = torch.rand(2, generator=g)\n"
+                     "w.bernoulli_()\ntorch.cuda.manual_seed_all(1)\nv = p.multinomial(1)\n")
+    rule = [int(f.split(":")[1].split()[0])
+            for f in _torch_draw_findings(draws, "src/repro_torch/policies/draws.py")]
+    port = [f.line for f in port_analyze([str(draws)], root=tmp_path, select=["RPA002"])]
+    assert rule == port == [2, 4, 5, 6]

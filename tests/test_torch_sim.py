@@ -135,6 +135,10 @@ def _sim_fields(res):
     ("fcfs", "continuous"),
     ("kairos-urgency-plus", "kairos-slack-greedy"),
     ("kairos-urgency-plus", "kairos-slack"),
+    ("sjf", "continuous"),
+    ("edf", "continuous"),
+    ("srpt", "continuous"),
+    ("cache-aware", "continuous"),
 ])
 def test_run_policy_equals_the_jax_packages(prefill, decode):
     """Same trace, same policy pair, a decode failure, lognormal step noise
@@ -156,6 +160,51 @@ def test_run_policy_equals_the_jax_packages(prefill, decode):
     assert jax_metrics.attainment(a.requests).as_dict() == attainment(b.requests).as_dict()
     assert jax_metrics.goodput(a.requests) == goodput(b.requests)
     assert [e.as_dict() for e in jtr.events] == [e.as_dict() for e in ttr.events]
+
+
+def _seeded_queue(rng):
+    """A queue that sets every field the prefill policies read: some
+    requests part prefilled or with a cached prefix head, some with tokens
+    already generated (a restart), SLOs and lengths drawn from small sets so
+    that scores tie and the rid tiebreak decides."""
+    out = []
+    for rid in rng.permutation(int(rng.integers(1, 16))):
+        input_len = int(rng.choice([1, 64, 512, 2048, int(rng.integers(1, 8192))]))
+        cached = int(rng.integers(0, input_len + 1)) if rng.random() < 0.4 else 0
+        done = int(rng.integers(0, input_len - cached + 1)) if rng.random() < 0.4 else 0
+        output_len = int(rng.choice([1, 16, 256]))
+        out.append(Request(
+            rid=int(rid), arrival=float(rng.choice([0.0, 0.5, float(rng.uniform(0, 4))])),
+            input_len=input_len, output_len=output_len,
+            slo=SLOSpec(ttft=float(rng.choice([0.5, 2.0, 8.0])), tpot=0.05),
+            phase=Phase.PREFILL if done else Phase.QUEUED, prefilled_tokens=done,
+            prefix_cached_tokens=cached,
+            n_generated=int(rng.integers(0, output_len)) if rng.random() < 0.3 else 0))
+    return out
+
+
+@pytest.mark.parametrize("name", ["sjf", "edf", "srpt", "cache-aware", "fcfs",
+                                  "kairos-urgency", "kairos-urgency-plus"])
+def test_prefill_select_equals_the_jax_packages(name):
+    """`make_prefill(name).select` of both packages over 200 seeded queues:
+    the same (rid, tokens) chunks in the same order."""
+    from repro.policies import available_prefill_policies as jax_prefill_policies
+    from repro.policies import make_prefill as jax_make_prefill
+    from repro_torch.policies import available_prefill_policies, make_prefill
+
+    assert set(available_prefill_policies()) == set(jax_prefill_policies())
+    assert name in available_prefill_policies()
+    a, b = jax_make_prefill(name), make_prefill(name)
+    rng = np.random.default_rng(26)
+    for _ in range(200):
+        queue = _seeded_queue(rng)
+        t_now = float(rng.uniform(0, 6))
+        mu = float(rng.choice([500.0, 4000.0, float(rng.uniform(50, 20000))]))
+        budget = int(rng.choice([1, 512, 8192, int(rng.integers(1, 20000))]))
+        want = [(r.rid, n) for r, n in a.select(_jax_twins(queue), t_now, mu, budget)]
+        got = [(r.rid, n) for r, n in b.select(queue, t_now, mu, budget)]
+        assert got == want, (name, t_now, mu, budget)
+        assert sum(n for _, n in got) <= budget
 
 
 def test_run_kairos_distserve_and_plus_equal_the_jax_packages():
