@@ -204,7 +204,7 @@ def run_loadgen(
         if hcfg.trace:
             path = _trace_path(hcfg.trace, scenario, prefill, decode, backend)
             trace_block["path"] = path
-            trace_block["format"] = write_trace(recorder.events, path)
+            trace_block["format"] = write_trace(recorder.events, path, recorder.spans)
         cell["trace"] = trace_block
     return dict(
         grid=dict(

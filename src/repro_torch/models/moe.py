@@ -14,15 +14,22 @@ kernel.
 On DTensors (a model on a mesh) the layer runs through ``local_map``
 (`_moe_on_mesh`): each rank routes its own rows, whole groups of them, and
 computes every expert on its slice of the expert width.
+
+While a ``torch.profiler`` runs, each call of the layer opens four ranges,
+``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``, so a
+device trace can put the layer's kernels down to its phases; otherwise it
+opens none.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.dtensor import is_dtensor, kernel_map, to_placements
@@ -61,6 +68,14 @@ def _route(x2: torch.Tensor, router: torch.Tensor, k: int):
     return topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9), topi
 
 
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(name: str, on: bool):
+    """A profiler range named ``name`` if ``on`` (a profiler runs)."""
+    return record_function(name) if on else _NO_RANGE
+
+
 def moe_ffn(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
     """x: (..., d_model) -> (..., d_model). Flattens the leading dims into
     groups of ``min(moe_group_size, tokens)`` rows, the last padded."""
@@ -83,29 +98,35 @@ def _moe_local(x: torch.Tensor, params: Dict, cfg: ModelConfig, gs: int) -> torc
 
     e, k = cfg.num_experts, cfg.experts_per_token
     cap = cfg.moe_capacity(gs)
-    topv, topi = _route(xg, params["router"], k)  # (g, s, k)
+    ranged = torch.autograd._profiler_enabled()
+    with _range("moe.route", ranged):
+        topv, topi = _route(xg, params["router"], k)  # (g, s, k)
 
-    onehot = _one_hot(topi, e)  # (g, s, k, e)
-    # position within expert: cumulate over the choices in (k, s) order so
-    # the k = 0 choices get the earlier slots
-    oh_ks = onehot.transpose(1, 2).reshape(ngroups, k * gs, e)
-    pos_ks = torch.cumsum(oh_ks, dim=1) - oh_ks
-    pos = pos_ks.reshape(ngroups, k, gs, e).transpose(1, 2)  # (g, s, k, e)
-    within_cap = (pos < cap) & (onehot > 0)
+    with _range("moe.dispatch", ranged):
+        onehot = _one_hot(topi, e)  # (g, s, k, e)
+        # position within expert: cumulate over the choices in (k, s) order
+        # so the k = 0 choices get the earlier slots
+        oh_ks = onehot.transpose(1, 2).reshape(ngroups, k * gs, e)
+        pos_ks = torch.cumsum(oh_ks, dim=1) - oh_ks
+        pos = pos_ks.reshape(ngroups, k, gs, e).transpose(1, 2)  # (g, s, k, e)
+        within_cap = (pos < cap) & (onehot > 0)
 
-    pos_idx = (pos * onehot).sum(-1).long()  # (g, s, k)
-    cap_oh = _one_hot(pos_idx, cap)  # (g, s, k, c)
-    keep = within_cap.any(-1)  # (g, s, k)
+        pos_idx = (pos * onehot).sum(-1).long()  # (g, s, k)
+        cap_oh = _one_hot(pos_idx, cap)  # (g, s, k, c)
+        keep = within_cap.any(-1)  # (g, s, k)
 
-    dispatch = torch.einsum("gske,gskc->gsec", onehot * within_cap.float(), cap_oh)
-    combine = torch.einsum("gske,gskc->gsec", onehot * (topv * keep.float())[..., None], cap_oh)
+        dispatch = torch.einsum("gske,gskc->gsec", onehot * within_cap.float(), cap_oh)
+        combine = torch.einsum("gske,gskc->gsec", onehot * (topv * keep.float())[..., None],
+                               cap_oh)
 
-    xdtype = x.dtype
-    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(xdtype), xg)
-    g_act = act_fn(cfg.act)(torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"]))
-    u = torch.einsum("gecd,edf->gecf", expert_in, params["w_up"])
-    expert_out = torch.einsum("gecf,efd->gecd", g_act * u, params["w_down"])
-    yg = torch.einsum("gsec,gecd->gsd", combine.to(xdtype), expert_out)
+        xdtype = x.dtype
+        expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(xdtype), xg)
+    with _range("moe.experts", ranged):
+        g_act = act_fn(cfg.act)(torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"]))
+        u = torch.einsum("gecd,edf->gecf", expert_in, params["w_up"])
+        expert_out = torch.einsum("gecf,efd->gecd", g_act * u, params["w_down"])
+    with _range("moe.combine", ranged):
+        yg = torch.einsum("gsec,gecd->gsd", combine.to(xdtype), expert_out)
     return yg.reshape(ngroups * gs, d)[:tokens].reshape(orig_shape)
 
 

@@ -49,6 +49,11 @@ the session — emission sites guard on that, so the disabled path allocates
 nothing and the enabled path only appends (it never reads time itself,
 which is what keeps ManualClock runs bit-identical with tracing on; see
 the overhead guard in tests/test_obs.py).
+
+Beside the events the recorder keeps ``spans``: the timed phases inside the
+engine's calls (`Span`; the names and where each is taken are in
+`repro_torch.serving.probe`, the only code that takes them). A span's times
+are handed in like an event's; the JAX reference has no spans.
 """
 from __future__ import annotations
 
@@ -125,6 +130,21 @@ class Event:
         )
 
 
+@dataclass
+class Span:
+    """One phase of an engine call. ``t0``/``t1`` are virtual seconds on
+    the emitting server's clock, as an `Event`'s ``t``; ``device_s`` is the
+    phase's time on the CUDA stream (None off the card, and for a phase
+    that only waits on the host); ``pool`` is the emitting track."""
+
+    name: str
+    pool: str
+    t0: float
+    t1: float
+    device_s: Optional[float] = None
+    data: Dict[str, Any] = field(default_factory=dict)
+
+
 class TraceRecorder:
     """Append-only in-memory event sink, injectable into every backend.
 
@@ -136,6 +156,7 @@ class TraceRecorder:
 
     def __init__(self) -> None:
         self.events: List[Event] = []
+        self.spans: List[Span] = []
 
     def emit(
         self,
@@ -151,6 +172,17 @@ class TraceRecorder:
             Event(type=etype, t=t, rid=rid, tenant=tenant, pool=pool, slot=slot, data=data)
         )
 
+    def span(
+        self,
+        name: str,
+        t0: float,
+        t1: float,
+        device_s: Optional[float] = None,
+        pool: str = "",
+        **data: Any,
+    ) -> None:
+        self.spans.append(Span(name=name, pool=pool, t0=t0, t1=t1, device_s=device_s, data=data))
+
     def __len__(self) -> int:
         return len(self.events)
 
@@ -165,6 +197,7 @@ class TraceRecorder:
 
     def clear(self) -> None:
         self.events.clear()
+        self.spans.clear()
 
 
 def _bump(table: Dict[str, int], tenant: str) -> None:

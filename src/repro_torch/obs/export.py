@@ -13,7 +13,10 @@ Two formats off one stream:
     scheduler track), and each request renders as three slices — prefill,
     handoff, decode — plus a TTFT flow arrow from its SUBMIT instant to its
     first TOKEN. Queue depth and in-flight transfers render as counter
-    tracks.
+    tracks. Given a recorder's ``spans``, each pool gets an ``engine``
+    thread holding them as slices (the phases of its engine calls, with
+    their device time), so the gaps a device trace shows can be put down
+    to them.
 
 ``write_trace`` dispatches on the path suffix: ``.jsonl`` writes the event
 log, anything else the Chrome JSON. Timestamps are emitted in microseconds
@@ -26,7 +29,7 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
-from repro_torch.obs.events import Event, EventType
+from repro_torch.obs.events import Event, EventType, Span
 
 # instants worth a mark on the scheduler track
 _INSTANT_TYPES = (
@@ -67,9 +70,13 @@ def _us(t: float) -> float:
     return t * 1e6
 
 
-def _pid_table(events: Sequence[Event]) -> Dict[str, int]:
+# the thread of a pool's engine spans, after any slot's
+_ENGINE_TID = 1 << 20
+
+
+def _pid_table(events: Sequence[Event], spans: Sequence[Span] = ()) -> Dict[str, int]:
     """Stable pool-label -> pid assignment (sorted; '' last as 'session')."""
-    labels = sorted({ev.pool for ev in events})
+    labels = sorted({ev.pool for ev in events} | {s.pool for s in spans})
     return {label: i + 1 for i, label in enumerate(labels)}
 
 
@@ -77,15 +84,18 @@ def _tid(ev: Event) -> int:
     return 0 if ev.slot is None else ev.slot + 1
 
 
-def chrome_trace(events: Sequence[Event]) -> Dict[str, Any]:
-    """Build the Chrome trace-event JSON object for one event stream."""
-    pids = _pid_table(events)
+def chrome_trace(events: Sequence[Event], spans: Sequence[Span] = ()) -> Dict[str, Any]:
+    """Build the Chrome trace-event JSON object for one event stream and,
+    if given, the recorder's spans."""
+    pids = _pid_table(events, spans)
     out: List[Dict[str, Any]] = []
 
     # ---- metadata: name every process and thread we will reference ------
     tids_by_pid: Dict[int, set] = {}
     for ev in events:
         tids_by_pid.setdefault(pids[ev.pool], set()).add(_tid(ev))
+    for sp in spans:
+        tids_by_pid.setdefault(pids[sp.pool], set()).add(_ENGINE_TID)
     for label, pid in pids.items():
         out.append(
             dict(
@@ -97,7 +107,8 @@ def chrome_trace(events: Sequence[Event]) -> Dict[str, Any]:
             out.append(
                 dict(
                     name="thread_name", ph="M", pid=pid, tid=tid, ts=0.0,
-                    args=dict(name="scheduler" if tid == 0 else f"slot {tid - 1}"),
+                    args=dict(name="scheduler" if tid == 0 else "engine"
+                              if tid == _ENGINE_TID else f"slot {tid - 1}"),
                 )
             )
 
@@ -206,26 +217,38 @@ def chrome_trace(events: Sequence[Event]) -> Dict[str, Any]:
                 )
             )
 
+    for sp in spans:  # one engine call's phases are contiguous, never nested
+        args = dict(sp.data)
+        if sp.device_s is not None:
+            args["device_ms"] = sp.device_s * 1e3
+        body.append(
+            dict(
+                name=sp.name, cat="span", ph="X",
+                ts=_us(sp.t0), dur=max(0.0, _us(sp.t1) - _us(sp.t0)),
+                pid=pids[sp.pool], tid=_ENGINE_TID, args=args,
+            )
+        )
+
     body.sort(key=lambda e: e["ts"])
-    return dict(
-        traceEvents=out + body,
-        displayTimeUnit="ms",
-        otherData=dict(generator="repro_torch.obs", events=len(events)),
-    )
+    other = dict(generator="repro_torch.obs", events=len(events))
+    if spans:
+        other["spans"] = len(spans)
+    return dict(traceEvents=out + body, displayTimeUnit="ms", otherData=other)
 
 
-def write_chrome_trace(events: Sequence[Event], path: str) -> None:
+def write_chrome_trace(events: Sequence[Event], path: str, spans: Sequence[Span] = ()) -> None:
     with open(path, "w", encoding="utf-8") as f:
-        json.dump(chrome_trace(events), f, indent=1, sort_keys=True)
+        json.dump(chrome_trace(events, spans), f, indent=1, sort_keys=True)
         f.write("\n")
 
 
-def write_trace(events: Sequence[Event], path: str) -> str:
+def write_trace(events: Sequence[Event], path: str, spans: Sequence[Span] = ()) -> str:
     """Write ``path`` in the format its suffix implies: ``.jsonl`` = raw
-    event log, anything else = Chrome trace-event JSON. Returns the format
-    written ("jsonl" | "chrome")."""
+    event log (events only), anything else = Chrome trace-event JSON, with
+    ``spans`` on the engine threads. Returns the format written ("jsonl" |
+    "chrome")."""
     if str(path).endswith(".jsonl"):
         write_jsonl(events, path)
         return "jsonl"
-    write_chrome_trace(events, path)
+    write_chrome_trace(events, path, spans)
     return "chrome"

@@ -56,6 +56,7 @@ from repro_torch.obs.events import EventType, TraceRecorder
 from repro_torch.policies import PolicySpec, make_deflection
 from repro_torch.serving.engine import DisaggServer, LiveRequest
 from repro_torch.serving.frontend import AsyncServeSession
+from repro_torch.serving.probe import Probe, lent
 from repro_torch.serving.session import FROM_CONFIG, SessionMetrics
 
 TokenCallback = Callable[[Request, int, float], None]
@@ -233,6 +234,9 @@ class DisaggSession:
         # `trace_label`. None = tracing off.
         self.trace = trace
         self.trace_label = trace_label
+        # each worker's engines record spans under its label
+        self._probes = [] if trace is None else [
+            Probe(w.server, trace, w.label) for w in (*self.prefill_pool, *self.decode_pool)]
 
     # --------------------------------------------------------- fleet view
     @property
@@ -563,12 +567,20 @@ class DisaggSession:
     # ---------------------------------------------------------------- step
     def step(self) -> List[int]:
         """Advance the fleet one round; returns rids completed this round.
+        With a recorder, every worker's engines record spans into it for
+        the round, under the worker's label.
 
         Per-worker stage bodies mirror `ServeSession.step` *read-for-read*
         (same clock calls in the same order per worker) — the basis of the
         1P:1D bit-parity contract. Do not add or reorder clock reads here
         without updating that test.
         """
+        if not self._probes:
+            return self._round()
+        with lent(self._probes):
+            return self._round()
+
+    def _round(self) -> List[int]:
         ecfg = self.ecfg
         clock = self.server.clock
         completed: List[int] = []

@@ -38,6 +38,7 @@ from repro_torch.device import DeviceLike, resolve_device, synchronize
 
 if TYPE_CHECKING:  # import for annotation only: engine stays obs-free
     from repro_torch.obs.events import TraceRecorder
+    from repro_torch.serving.probe import Probe
 from repro_torch.models.model import Model, cache_struct
 from repro_torch.models.transformer import chunk_prefill_step, decode_step
 from repro_torch.policies import PolicySpec, make_decode, make_prefill
@@ -51,6 +52,7 @@ from repro_torch.serving.kvcache import (
     scatter_slots,
 )
 from repro_torch.serving.prefixcache import PrefixCache
+from repro_torch.serving.probe import OFF
 from repro_torch.serving.sampler import sample
 from repro_torch.sim.costmodel import CalibratedCostModel
 
@@ -117,6 +119,8 @@ class LiveRequest:
 class PrefillEngine:
     def __init__(self, model: Model, params: Dict, ecfg: EngineConfig, device: torch.device):
         self.model, self.params, self.ecfg, self.device = model, params, ecfg, device
+        # lent by a tracing session for one step (`serving/probe.py`)
+        self.probe: Optional["Probe"] = None
 
     def new_cache(self) -> Dict:
         return self.model.init_cache(1, self.ecfg.max_len, device=self.device)
@@ -145,9 +149,11 @@ class PrefillEngine:
         """Prefill `take` tokens of lr; returns last logits if prompt done."""
         r = lr.req
         ecfg = self.ecfg
+        start = r.prefix_cached_tokens + r.prefilled_tokens
+        ph = OFF if self.probe is None else self.probe.phases()
+        ph.next("prefill.chunk", rid=r.rid, start=start, take=take)
         if lr.prefill_cache is None:
             lr.prefill_cache = self._seed_cache(lr)
-        start = r.prefix_cached_tokens + r.prefilled_tokens
         chunk = lr.tokens[start : start + take]
         pad = ecfg.chunk_size - len(chunk)
         toks = torch.tensor([chunk + [0] * pad], dtype=torch.long, device=self.device)
@@ -155,15 +161,20 @@ class PrefillEngine:
             self.params, toks, [start], [len(chunk)], self.model.cfg, lr.prefill_cache
         )
         r.prefilled_tokens += take
+        ph.fence()
         if r.prefill_done:
-            return logits[0].cpu().numpy()  # the copy waits for the chunk
-        synchronize(self.device)
-        return None
+            out = logits[0].cpu().numpy()  # the copy waits for the chunk
+        else:
+            out = None
+            synchronize(self.device)
+        ph.end()
+        return out
 
 
 class DecodeEngine:
     def __init__(self, model: Model, params: Dict, ecfg: EngineConfig, device: torch.device):
         self.model, self.params, self.ecfg, self.device = model, params, ecfg, device
+        self.probe: Optional["Probe"] = None  # as PrefillEngine.probe
         # slot ids stay the batch-lane identity in both layouts; in paged
         # mode they charge 0 tokens (the page pool is the capacity)
         self.alloc = SlotAllocator(ecfg.max_slots, ecfg.kv_cap_tokens)
@@ -294,6 +305,8 @@ class DecodeEngine:
         ecfg = self.ecfg
         cfg = self.model.cfg
         bs = _bucket(len(batch), ecfg.decode_buckets)
+        ph = OFF if self.probe is None else self.probe.phases()
+        ph.next("decode.gather")
         toks = [lr.tokens[-1] for lr in batch] + [0] * (bs - len(batch))
         pos = [lr.req.seq_len - 1 for lr in batch] + [0] * (bs - len(batch))
         toks_t = torch.tensor(toks, dtype=torch.long, device=self.device)[:, None]
@@ -304,16 +317,24 @@ class DecodeEngine:
             rows += [[sp] * p] * (bs - len(batch))  # pad lanes write scratch only
             page_idx = torch.tensor(rows, dtype=torch.long, device=self.device)
             sub = gather_pages(cfg, self.pool, page_idx)
+            ph.next("decode.forward")
             logits, sub = decode_step(self.params, toks_t, pos_t, cfg, sub)
+            ph.next("decode.scatter")
             scatter_pages(cfg, self.pool, sub, page_idx)
         else:
             slots = [lr.slot for lr in batch] + [self.scratch_slot] * (bs - len(batch))
             slot_idx = torch.tensor(slots, dtype=torch.long, device=self.device)
             sub = gather_slots(cfg, self.cache, slot_idx)
+            ph.next("decode.forward")
             logits, sub = decode_step(self.params, toks_t, pos_t, cfg, sub)
+            ph.next("decode.scatter")
             scatter_slots(cfg, self.cache, sub, slot_idx)
+        ph.next("decode.sample")
         toks_out = sample(logits, temperature=ecfg.temperature, generator=generator)
-        return toks_out.cpu().numpy()[: len(batch)]  # the copy waits for the step
+        ph.next("decode.wait", device=False)
+        out = toks_out.cpu().numpy()[: len(batch)]  # the copy waits for the step
+        ph.end()
+        return out
 
 
 class DisaggServer:

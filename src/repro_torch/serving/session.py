@@ -45,6 +45,7 @@ from repro_torch.core.request import Phase, Request
 from repro_torch.obs.events import EventType, TraceRecorder
 from repro_torch.serving.engine import DisaggServer, LiveRequest
 from repro_torch.serving.prefixcache import PrefixCache
+from repro_torch.serving.probe import Probe, lent
 
 # on_token(request, token, t_virtual) — called as each token is produced.
 TokenCallback = Callable[[Request, int, float], None]
@@ -125,6 +126,8 @@ class ServeSession:
         # ManualClock schedules (pinned in tests/test_obs.py).
         self.trace = trace if trace is not None else getattr(server, "trace", None)
         self.trace_label = trace_label
+        # the engines' span readings while a recorder is given
+        self._probes = [] if self.trace is None else [Probe(server, self.trace, trace_label)]
         self.ecfg = server.ecfg
         if max_queue_depth is FROM_CONFIG:
             max_queue_depth = server.ecfg.admission_queue_depth
@@ -295,7 +298,15 @@ class ServeSession:
 
     # ---------------------------------------------------------------- step
     def step(self) -> List[int]:
-        """Advance the session one round; returns rids completed this round."""
+        """Advance the session one round; returns rids completed this round.
+        With a recorder, the server's engines record spans into it for the
+        round (`repro_torch.serving.probe`)."""
+        if not self._probes:
+            return self._round()
+        with lent(self._probes):
+            return self._round()
+
+    def _round(self) -> List[int]:
         srv = self.server
         ecfg = self.ecfg
         clock = srv.clock

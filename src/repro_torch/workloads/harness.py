@@ -748,7 +748,7 @@ def evaluate_cell(
         if hcfg.trace:  # "" = in-memory block only, no file
             path = _trace_path(hcfg.trace, scenario, prefill, decode, backend)
             trace_block["path"] = path
-            trace_block["format"] = write_trace(recorder.events, path)
+            trace_block["format"] = write_trace(recorder.events, path, recorder.spans)
         cell["trace"] = trace_block
     return cell
 

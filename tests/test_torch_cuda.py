@@ -162,6 +162,36 @@ def test_small_serve_goes_through_the_kernels(cuda, page_size, rng):
         assert outs[i] == reference_generate(model, params, p, 6, 64)
 
 
+def test_spans_read_the_stream_on_the_card(cuda, rng):
+    """A traced serve on the card: every device phase of each decode step
+    and every prefill chunk has a positive time on the stream, the wait has
+    none, and a step's gather and scatter together take at most the step's
+    stream time (its four device phases)."""
+    from repro_torch.obs.events import TraceRecorder
+    from repro_torch.serving.session import ServeSession
+
+    cfg = get_config("llama3-8b-smoke").replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    prompts = [list(map(int, rng.integers(2, cfg.vocab_size, n))) for n in (5, 19, 40)]
+    reqs = [(Request(rid=i, arrival=0.0, input_len=len(p), output_len=6,
+                     slo=SLOSpec(ttft=60.0, tpot=5.0)), p) for i, p in enumerate(prompts)]
+    trace = TraceRecorder()
+    srv = DisaggServer(model, params, EngineConfig(max_slots=4, max_len=64, chunk_size=16,
+                                                   page_size=8), device=cuda)
+    ServeSession(srv, trace=trace).run(reqs)
+    chunks = [s for s in trace.spans if s.name == "prefill.chunk"]
+    dec = [s for s in trace.spans if s.name.startswith("decode.")]
+    assert chunks and dec and len(dec) % 5 == 0
+    assert all(s.device_s > 0 for s in chunks)
+    for i in range(0, len(dec), 5):
+        gather, forward, scatter, samp, wait = dec[i:i + 5]
+        assert wait.name == "decode.wait" and wait.device_s is None
+        stream = [gather.device_s, forward.device_s, scatter.device_s, samp.device_s]
+        assert all(d > 0 for d in stream)
+        assert gather.device_s + scatter.device_s <= sum(stream)
+
+
 # bf16 against the plain version computed in f32 from the same inputs, in
 # relative norm (decode lane by lane), as chip_smoke.py holds them: the 2e-2
 # elementwise tolerance is as large as a typical output over a few hundred rows

@@ -104,6 +104,20 @@ def test_disagg_fleet_matches_jax_fleet(both_models, n_prefill, deflection):
     one shared ManualClock(auto_step=1e-4) each, with a priced handoff:
     identical tokens, token_times, phases, summary() (handoff and
     deflection blocks included) and event streams."""
+    _disagg_parity(both_models, n_prefill, deflection)
+
+
+def test_disagg_stream_equals_jax_with_spans_recording(both_models):
+    """2P:1D slack-aware: prefill chunks are spans of the worker that ran
+    them (a deflected prompt's of the decode worker), decode steps of the
+    decode worker, and the events still equal the JAX stream."""
+    ttrace = _disagg_parity(both_models, 2, "slack-aware")
+    chunk_pools = {s.pool for s in ttrace.spans if s.name == "prefill.chunk"}
+    assert {"prefill:0", "prefill:1", "decode:0"} <= chunk_pools
+    assert {s.pool for s in ttrace.spans if s.name.startswith("decode.")} == {"decode:0"}
+
+
+def _disagg_parity(both_models, n_prefill, deflection):
     kw = dict(transfer_lat=0.002)
     # a burst under tight TTFTs: slack-aware sees prefill pressure and deflects
     jpairs = _requests(n=8, max_out=4, seed=3, ttft=0.005,
@@ -134,6 +148,7 @@ def test_disagg_fleet_matches_jax_fleet(both_models, n_prefill, deflection):
     if deflection == "slack-aware":  # the case reaches the deflected path
         assert ts["deflection"]["deflected"] > 0
         assert ts["handoff"]["local_transfers"] == ts["deflection"]["deflected"]
+    return ttrace
 
 
 # ------------------------------------------------ twins of tests/test_disagg.py

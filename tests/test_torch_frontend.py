@@ -87,6 +87,20 @@ def test_async_frontend_matches_jax_frontend(both_models, prefill_policy, decode
     """The same replay through the JAX AsyncServeSession and the port's, on
     ManualClock(auto_step=1e-4): identical tokens, token_times, terminal
     phases, summary() and event streams (every field, so (type, t) too)."""
+    _frontend_parity(both_models, prefill_policy, decode_policy)
+
+
+def test_async_frontend_stream_equals_jax_with_spans_recording(both_models):
+    """The port's recorder also holds the engine's spans (the JAX one has
+    none), and its events still equal the JAX stream, as_dict for as_dict."""
+    ttrace = _frontend_parity(both_models, "kairos-urgency", "kairos-slack")
+    names = {s.name for s in ttrace.spans}
+    assert names == {"prefill.chunk", "decode.gather", "decode.forward", "decode.scatter",
+                     "decode.sample", "decode.wait"}
+    assert {s.pool for s in ttrace.spans} == {"engine:0"}
+
+
+def _frontend_parity(both_models, prefill_policy, decode_policy):
     kw = dict(prefill_policy=prefill_policy, decode_policy=decode_policy)
     jpairs = _requests(n=6, max_out=5, seed=2, arrival_gap=0.004,
                        req_cls=JaxRequest, slo_cls=JaxSLOSpec)
@@ -107,6 +121,7 @@ def test_async_frontend_matches_jax_frontend(both_models, prefill_policy, decode
         assert tr.token_times == jr.token_times, tr.rid
     assert tfe.summary() == jfe.summary()
     assert _events(ttrace) == _events(jtrace)
+    return ttrace
 
 
 # ------------------------------------------- twins of tests/test_async_frontend.py

@@ -103,6 +103,18 @@ def test_router_matches_jax_router(both_models, n_replicas):
     each replica on its own ManualClock(auto_step=1e-4): the JAX
     RouterSession and the port's give identical tokens, token_times,
     phases, summary() and event streams."""
+    _router_parity(both_models, n_replicas)
+
+
+def test_router_stream_equals_jax_with_spans_recording(both_models):
+    """Two replicas record their engines' spans into the shared recorder,
+    each under its label, and the events still equal the JAX stream."""
+    ttrace = _router_parity(both_models, 2)
+    assert ttrace.spans
+    assert {s.pool for s in ttrace.spans} == {"replica:0", "replica:1"}
+
+
+def _router_parity(both_models, n_replicas):
     kw = dict(max_len=64, page_size=16)
 
     async def run(router, pairs):
@@ -128,6 +140,7 @@ def test_router_matches_jax_router(both_models, n_replicas):
     assert ts["prefix"]["hit_tokens"] > 0
     if n_replicas == 2:
         assert min(ts["routing"]["assigned"]) > 0
+    return ttrace
 
 
 # --------------------------------------- twins of tests/test_policies_registry.py
