@@ -5,8 +5,10 @@ PrefillEngine owns a prefill cache per in-flight request and executes the
 chunked prefill steps the prefill scheduler chooses (urgency/FCFS/...).
 DecodeEngine owns the slot cache (or the page pool); each step the decode
 scheduler (slack-guided / continuous) picks the sub-batch, which is
-gathered into a power-of-two bucket, decoded, and scattered back. Observed
-step times feed the LUT and the prefill-throughput estimator online.
+gathered into a power-of-two bucket and decoded; the slot layout scatters
+the lanes back, the paged layout writes back only the one new KV row of
+each lane. Observed step times feed the LUT and the prefill-throughput
+estimator online.
 
 The session reads its clock around the engine's steps, so every step
 returns only once the device has finished it: decode and the last prefill
@@ -301,7 +303,9 @@ class DecodeEngine:
 
     def step(self, batch: List[LiveRequest], generator: Optional[torch.Generator]) -> np.ndarray:
         """One decode step over the scheduler-chosen sub-batch: gather its
-        cache lanes into a bucket, decode, scatter them back."""
+        cache lanes into a bucket and decode. The slot layout scatters the
+        lanes back; the paged layout writes back only the K/V row the step
+        wrote in each lane, at its page-table position."""
         ecfg = self.ecfg
         cfg = self.model.cfg
         bs = _bucket(len(batch), ecfg.decode_buckets)
@@ -312,15 +316,29 @@ class DecodeEngine:
         toks_t = torch.tensor(toks, dtype=torch.long, device=self.device)[:, None]
         pos_t = torch.tensor(pos, dtype=torch.int32, device=self.device)
         if self.pages is not None:
-            p, sp = self.pages_per_req, self.scratch_page
+            p, sp, ps = self.pages_per_req, self.scratch_page, self.page_size
             rows = [lr.page_table + [sp] * (p - len(lr.page_table)) for lr in batch]
             rows += [[sp] * p] * (bs - len(batch))  # pad lanes write scratch only
             page_idx = torch.tensor(rows, dtype=torch.long, device=self.device)
+            # each lane's new row, as a row of the gathered lanes and of the
+            # pool; built before the forward, as a copy to the card waits for it
+            new_at = torch.tensor(
+                [[i * ecfg.max_len + q for i, q in enumerate(pos)],
+                 [r[q // ps] * ps + q % ps for r, q in zip(rows, pos)]],
+                dtype=torch.long, device=self.device,
+            )
             sub = gather_pages(cfg, self.pool, page_idx)
             ph.next("decode.forward")
             logits, sub = decode_step(self.params, toks_t, pos_t, cfg, sub)
             ph.next("decode.scatter")
-            scatter_pages(cfg, self.pool, sub, page_idx)
+            # decode writes only at a request's own position, never into a
+            # shared prefix page (`scatter_pages`), so that row is all the
+            # step changed: write it through a one-row-a-page view of the pool
+            new = {n: leaf.flatten(1, 2).index_select(1, new_at[0]).unsqueeze(2)
+                   for n, leaf in sub.items()}
+            pool_rows = {n: leaf.view(leaf.shape[0], -1, 1, *leaf.shape[3:])
+                         for n, leaf in self.pool.items()}
+            scatter_pages(cfg, pool_rows, new, new_at[1, :, None])
         else:
             slots = [lr.slot for lr in batch] + [self.scratch_slot] * (bs - len(batch))
             slot_idx = torch.tensor(slots, dtype=torch.long, device=self.device)

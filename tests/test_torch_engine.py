@@ -24,8 +24,16 @@ from repro_torch.core.request import Phase, Request, SLOSpec  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving.clock import ManualClock  # noqa: E402
-from repro_torch.serving.engine import DisaggServer, EngineConfig, reference_generate  # noqa: E402
-from repro_torch.serving.kvcache import SlotAllocator  # noqa: E402
+import repro_torch.serving.engine as engine_mod  # noqa: E402
+from repro_torch.models.transformer import decode_step  # noqa: E402
+from repro_torch.serving.engine import (  # noqa: E402
+    DisaggServer,
+    EngineConfig,
+    LiveRequest,
+    _bucket,
+    reference_generate,
+)
+from repro_torch.serving.kvcache import SlotAllocator, gather_pages, scatter_pages  # noqa: E402
 from repro_torch.serving.session import ServeSession  # noqa: E402
 
 
@@ -177,6 +185,85 @@ def test_paged_prefix_reuse_skips_exactly_the_hit_tokens(both_models):
     assert s["prefix_cached_tokens"] > 0
     assert s["prefill_computed_tokens"] == sum(map(len, prompts)) - s["prefix_cached_tokens"]
     assert paged.outputs == slot.outputs
+
+
+# --------------------------------------------------- the paged decode write-back
+def _noisy_paged_engine(both_models):
+    """The decode engine of a paged server (page 4, max_len 64: 16 pages a
+    lane, 64 pages and the scratch page) whose pool holds seeded noise."""
+    dec = _server(both_models, page_size=4).decode
+    gen = torch.Generator().manual_seed(0)
+    for leaf in dec.pool.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, dtype=leaf.dtype))
+    return dec
+
+
+def _lanes(lanes):
+    """Live requests decoding at ``pos`` with page table ``table``."""
+    rng = np.random.default_rng(5)
+    return [LiveRequest(req=Request(rid=i, arrival=0.0, input_len=pos + 1, output_len=4),
+                        tokens=list(map(int, rng.integers(2, 256, pos + 1))), page_table=table)
+            for i, (table, pos) in enumerate(lanes)]
+
+
+WRITE_BACK_CASES = {
+    "first row of a page": [([5, 9, 2], 8)],
+    "last row of a page": [([5, 9, 2], 7), ([40, 41], 3)],
+    "last page of max_len": [(list(range(16, 32)), 63), (list(range(32, 48)), 60)],
+    "shared prefix pages": [([3, 4, 10], 9), ([3, 4, 11], 11)],
+    "pad lanes on the scratch page": [([5, 9, 2], 10), ([6], 0), ([7, 8], 4)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(WRITE_BACK_CASES))
+def test_paged_step_leaves_the_pool_as_the_whole_lane_write_back(both_models, case):
+    """After one paged step every page but the scratch page is bit-identical
+    to a pool advanced by gathering each lane's whole table, decoding and
+    scattering every page back, and the step samples that decode's tokens."""
+    dec = _noisy_paged_engine(both_models)
+    batch = _lanes(WRITE_BACK_CASES[case])
+    cfg, sp, p = dec.model.cfg, dec.scratch_page, dec.pages_per_req
+    bs = _bucket(len(batch), dec.ecfg.decode_buckets)
+    rows = [lr.page_table + [sp] * (p - len(lr.page_table)) for lr in batch]
+    page_idx = torch.tensor(rows + [[sp] * p] * (bs - len(batch)))
+    pos = torch.tensor([lr.req.seq_len - 1 for lr in batch] + [0] * (bs - len(batch)),
+                       dtype=torch.int32)
+    toks = torch.tensor([lr.tokens[-1] for lr in batch] + [0] * (bs - len(batch)))[:, None]
+    want = {n: leaf.clone() for n, leaf in dec.pool.items()}
+    logits, sub = decode_step(dec.params, toks, pos, cfg, gather_pages(cfg, want, page_idx))
+    scatter_pages(cfg, want, sub, page_idx)
+
+    out = dec.step(batch, None)
+    assert out.tolist() == logits.argmax(-1)[: len(batch)].tolist()
+    for n in want:
+        assert torch.equal(dec.pool[n][:, :sp], want[n][:, :sp]), n
+
+
+def test_paged_step_writes_back_one_row_a_lane(both_models, monkeypatch):
+    """A paged step calls `scatter_pages` once: a (bucket, 1) index into a
+    one-row-a-page view of the pool (the pool's own storage), one row a lane."""
+    dec = _noisy_paged_engine(both_models)
+    calls = []
+    real = engine_mod.scatter_pages
+    monkeypatch.setattr(engine_mod, "scatter_pages", lambda *a: calls.append(a) or real(*a))
+    dec.step(_lanes(WRITE_BACK_CASES["pad lanes on the scratch page"]), None)
+    ((_, pool, sub, idx),) = calls
+    assert idx.shape == (4, 1)
+    for n, leaf in dec.pool.items():
+        assert pool[n].shape == (leaf.shape[0], leaf.shape[1] * leaf.shape[2], 1, *leaf.shape[3:])
+        assert pool[n].data_ptr() == leaf.data_ptr()
+        assert sub[n].shape == (leaf.shape[0], 4, 1, *leaf.shape[3:])
+
+
+def test_paged_serve_with_the_write_back_left_out_gives_other_tokens(both_models, monkeypatch):
+    """The port's side of the benchmark's "state unchanged" fault: with
+    `scatter_pages` a no-op the served tokens differ from a sound serve's."""
+    reqs = _requests(_prompts(4, seed=6), max_out=8)
+    sound = _run_session(_server(both_models, page_size=4), copy.deepcopy(reqs))
+    monkeypatch.setattr(engine_mod, "scatter_pages", lambda cfg, pool, sub, idx: pool)
+    broken = _run_session(_server(both_models, page_size=4), copy.deepcopy(reqs))
+    assert broken.outputs.keys() == sound.outputs.keys()
+    assert broken.outputs != sound.outputs
 
 
 # ------------------------------------------------------------------- ROADMAP C1
