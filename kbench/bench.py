@@ -313,7 +313,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_process: floa
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    check = correct_mod.check(weights, cfg, out["prompts"], out["done"], seed, log, control)
+    check = correct_mod.check(weights, cfg, out["prompts"], out["done"], seed, log, control,
+                              root=cell.root)
     result["correct"] = check["correct"]
     if control is not None:
         result["_check"] = check

@@ -2,7 +2,8 @@
 cell's own size and load, many seeds in one process: for each seed a run
 of the cell (``--seconds`` of window after its lead-in), then the widest
 logit gap of what the program served (the lower reading is the largest
-over the seeds) and of what the float8 control (``reference/model.py``,
+over the seeds) and of what the float8 control (the reference the
+configuration names, ``kbench/reference/<reference>.py``, at
 ``quant="fp8"``) puts first at the same positions (the upper reading is
 the smallest). The benchmark's own runs do not run the control.
 

@@ -1,6 +1,7 @@
 """Whether what the timed path served is right: a sample of the requests
-it finished, the longest among them, run through the plain reference
-(``kbench/reference``) once over each prompt with its served tokens.
+it finished, the longest among them, run through the plain reference the
+configuration names (``kbench/reference/<reference>.py``, found by
+``spec.reference``) once over each prompt with its served tokens.
 
 For every served token, its logit gap: how far the reference's logit of
 that token lies below the reference's best at that position. Greedy
@@ -16,12 +17,13 @@ each limit was set from.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, TextIO, Tuple
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, TextIO, Tuple
 
 import numpy as np
 import torch
 
-from kbench.reference.model import logits_at
+from kbench.spec import reference
 
 
 def sample(done: Dict[int, List[int]], prompts: Dict[int, List[int]], seed: int,
@@ -51,12 +53,14 @@ def served_rows(prompt: Sequence[int], served: Sequence[int]) -> Tuple[List[int]
     return seq, list(range(len(prompt) - 1, len(prompt) - 1 + len(served)))
 
 
-def gaps(weights: Dict, cfg: Dict, seqs, rows, served, quant: Optional[str] = None,
-         ref: Optional[List[torch.Tensor]] = None) -> Tuple[np.ndarray, List[torch.Tensor]]:
+def gaps(logits_at: Callable, weights: Dict, cfg: Dict, seqs, rows, served,
+         quant: Optional[str] = None, ref: Optional[List[torch.Tensor]] = None
+         ) -> Tuple[np.ndarray, List[torch.Tensor]]:
     """Per served token, the reference's best logit minus its logit of the
     token chosen: the served token, or (``quant``) the argmax of the
-    reference computed at that lower precision. Returns the gaps and the
-    float32 reference logits (to reuse)."""
+    reference computed at that lower precision. ``logits_at`` is the
+    reference's. Returns the gaps and the float32 reference logits (to
+    reuse)."""
     if ref is None:
         ref = logits_at(weights, cfg, seqs, rows)
     if quant is None:
@@ -79,12 +83,15 @@ NUMBERS = {
 
 def check(weights: Dict, cfg: Dict, prompts: Dict[int, List[int]],
           done: Dict[int, List[int]], seed: int, log: TextIO,
-          control: Optional[Sequence[str]] = None) -> Dict:
+          control: Optional[Sequence[str]] = None, root: Optional[Path] = None) -> Dict:
     """The run's verdict on the numbers the configuration's
-    ``correct.limits`` names (of `NUMBERS`); prints them, with their
-    limits, as the last lines on ``log``. ``control`` (the control runs
-    only) also reads, for each precision named, the gaps of the tokens the
-    reference at that precision puts first, at the same positions."""
+    ``correct.limits`` names (of `NUMBERS`), against the reference it
+    names (looked up under ``root``, as ``spec.reference`` does); prints
+    them, with their limits, as the last lines on ``log``. ``control``
+    (the control runs only) also reads, for each precision named, the gaps
+    of the tokens the reference at that precision puts first, at the same
+    positions."""
+    logits_at = reference(cfg, root)
     c = cfg["correct"]
     limits = {k: float(v) for k, v in c["limits"].items()}
     rids = sample(done, prompts, seed, int(c["sample_tokens"]), int(c["max_requests"]))
@@ -93,16 +100,16 @@ def check(weights: Dict, cfg: Dict, prompts: Dict[int, List[int]],
     if rids:
         seqs, rows = zip(*(served_rows(prompts[r], done[r]) for r in rids))
         served = [done[r] for r in rids]
-        g, ref = gaps(weights, cfg, seqs, rows, served)
+        g, ref = gaps(logits_at, weights, cfg, seqs, rows, served)
         readings["program"] = g
         for q in control or ():
-            readings[q], _ = gaps(weights, cfg, seqs, rows, served, quant=q, ref=ref)
+            readings[q], _ = gaps(logits_at, weights, cfg, seqs, rows, served, quant=q, ref=ref)
     values = {k: NUMBERS[k](readings["program"]) if rids else None for k in limits}
     ok = bool(rids) and all(values[k] <= lim for k, lim in limits.items())
     n_tok = sum(len(done[r]) for r in rids)
     print(f"[kbench] checked {len(rids)} finished requests of {len(done)} ({n_tok} served "
           f"tokens; longest {len(prompts[rids[0]]) + len(done[rids[0]]) if rids else 0} "
-          f"tokens) against the float32 reference in {time.monotonic() - t:.1f} s; "
+          f"tokens) against the float32 reference {cfg['reference']!r} in {time.monotonic() - t:.1f} s; "
           + ", ".join(f"{k} {f(readings['program'])!r}" for k, f in NUMBERS.items() if rids),
           file=log)
     checks = {k: {"value": values[k], "limit": lim} for k, lim in limits.items()}

@@ -3,7 +3,10 @@ written from the published descriptions and independent of the program.
 
 A decoder block as in Llama (which MiniCPM and Phi-3.5-MoE follow): RMSNorm
 before attention and before the MLP, rotary embeddings on the queries and
-keys, causal grouped-query attention, a residual around each; the MLP a
+keys, causal grouped-query attention (each layer at the window the
+configuration's ``attention_windows`` gives it: a query at p sees the keys
+k with p - w < k <= p; 0 or no key: the whole prefix), a residual around
+each; the MLP a
 SwiGLU, or (``num_experts`` > 0) a top-k mixture of SwiGLU experts routed by
 a softmax over a linear router, the k gates renormalised to sum to one
 (Mixtral's gating). Departures from the published models, which the
@@ -90,9 +93,10 @@ def _rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def _attention(q, k, v, block: int) -> torch.Tensor:
+def _attention(q, k, v, block: int, window: int = 0) -> torch.Tensor:
     """Causal GQA attention of one sequence, in query blocks: q (S, Hq, D),
-    k and v (S, Hkv, D)."""
+    k and v (S, Hkv, D); with ``window`` > 0 a query at p sees only the
+    keys k > p - window."""
     s, hq, d = q.shape
     g = hq // k.shape[1]
     kk = k.repeat_interleave(g, dim=1).transpose(0, 1)  # (Hq, S, D)
@@ -101,15 +105,31 @@ def _attention(q, k, v, block: int) -> torch.Tensor:
     kpos = torch.arange(s, device=q.device)
     for a in range(0, s, block):
         b = min(s, a + block)
+        lo = max(0, a - window + 1) if window else 0  # the block's first visible key
         qb = q[a:b].transpose(0, 1)  # (Hq, n, D)
-        sc = (qb @ kk[:, :b].transpose(1, 2)) / math.sqrt(d)  # (Hq, n, b)
-        mask = kpos[None, :b] > torch.arange(a, b, device=q.device)[:, None]
+        sc = (qb @ kk[:, lo:b].transpose(1, 2)) / math.sqrt(d)  # (Hq, n, b - lo)
+        qpos = torch.arange(a, b, device=q.device)[:, None]
+        mask = kpos[None, lo:b] > qpos
+        if window:
+            mask |= kpos[None, lo:b] <= qpos - window
         sc = sc.masked_fill(mask[None], float("-inf"))
-        out[a:b] = (torch.softmax(sc, dim=-1) @ vv[:, :b]).transpose(0, 1)
+        out[a:b] = (torch.softmax(sc, dim=-1) @ vv[:, lo:b]).transpose(0, 1)
     return out
 
 
-def _layer(lw: Dict, x: torch.Tensor, m: Dict, mm: _Mm, block: int) -> torch.Tensor:
+def _windows(m: Dict) -> List[int]:
+    """Each layer's attention window from ``attention_windows`` (0 for
+    every layer where the configuration states none)."""
+    ws = m.get("attention_windows")
+    if ws is None:
+        return [0] * m["num_layers"]
+    if len(ws) != m["num_layers"]:
+        raise ValueError(f"attention_windows lists {len(ws)} layers, not {m['num_layers']}")
+    return [int(w) for w in ws]
+
+
+def _layer(lw: Dict, x: torch.Tensor, m: Dict, mm: _Mm, block: int,
+           window: int = 0) -> torch.Tensor:
     s = x.shape[0]
     hq, hkv, hd, eps = m["num_heads"], m["num_kv_heads"], m["head_dim"], m["norm_eps"]
     pos = torch.arange(s, device=x.device)
@@ -118,7 +138,7 @@ def _layer(lw: Dict, x: torch.Tensor, m: Dict, mm: _Mm, block: int) -> torch.Ten
     q = _rope(mm(h, a["wq"]).view(s, hq, hd), pos, m["rope_theta"])
     k = _rope(mm(h, a["wk"]).view(s, hkv, hd), pos, m["rope_theta"])
     v = mm(h, a["wv"]).view(s, hkv, hd)
-    x = x + mm(_attention(q, k, v, block).reshape(s, hq * hd), a["wo"])
+    x = x + mm(_attention(q, k, v, block, window).reshape(s, hq * hd), a["wo"])
     h = _rms(x, lw["pre_mlp_norm"], eps)
     if "moe" in lw:
         return x + _moe(lw["moe"], h, m, mm)
@@ -164,11 +184,12 @@ def logits_at(weights: Dict, m: Dict, seqs: Sequence[Sequence[int]],
     the whole sequence; layer by layer over all sequences."""
     dev = weights["embed"].device
     mm = _Mm(quant)
+    windows = _windows(m)
     with torch.no_grad(), _no_tf32():
         xs = [weights["embed"][torch.tensor(list(s), device=dev)].float() for s in seqs]
-        for i in range(m["num_layers"]):
+        for i, window in enumerate(windows):
             lw = _layer_weights(weights["layers"], i, mm)
-            xs = [_layer(lw, x, m, mm, block) for x in xs]
+            xs = [_layer(lw, x, m, mm, block, window) for x in xs]
             del lw
         head = weights["embed"].T if m["tie_embeddings"] else weights["lm_head"]
         head = mm.w(head)

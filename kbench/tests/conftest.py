@@ -8,20 +8,30 @@ for p in (str(ROOT / "src"), str(ROOT)):
 
 
 import json  # noqa: E402
+import shutil  # noqa: E402
+from typing import Optional  # noqa: E402
 
 import pytest  # noqa: E402
 
 KBENCH = ROOT / "kbench"
 
 
-def tiny_files(tmp: Path, config: str = "minicpm-2b", loop: str = "open", limit: float = 0.05):
-    """A throwaway configuration (the named one at smoke widths) and traffic
-    mix in ``tmp/kbench``, and a benchmark description with one cell over
-    them; the repository's files are only read."""
+def tiny_files(tmp: Path, config: str = "minicpm-2b", loop: str = "open", limit: float = 0.05,
+               reference: Optional[str] = "model"):
+    """A throwaway configuration (the named one at smoke widths, naming
+    ``reference``, or no reference where that is None) and traffic mix in
+    ``tmp/kbench``, the repository's reference modules copied beside them,
+    and a benchmark description with one cell over them; the repository's
+    files are only read."""
     root = tmp / "kbench"
     (root / "configs").mkdir(parents=True)
     (root / "traffic").mkdir()
+    shutil.copytree(KBENCH / "reference", root / "reference",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     cfg = json.loads((KBENCH / "configs" / f"{config}.json").read_text())
+    cfg.pop("reference")
+    if reference is not None:
+        cfg["reference"] = reference
     cfg.update(name="tiny", num_layers=2, d_model=64, num_heads=4, head_dim=16, d_ff=128,
                vocab_size=256, max_len=256,
                num_kv_heads=4 if cfg["num_kv_heads"] == cfg["num_heads"] else 2)

@@ -61,8 +61,19 @@ FAULTS = {"token altered": _token_altered, "state unchanged": _state_unchanged,
 LIMIT = {"minicpm-2b": 0.05, "phi3.5-moe-16l": 0.05}
 
 
-def _run(tiny, monkeypatch, config, fault=None, control=None, seed=3):
-    bench, root = tiny(config=config, loop="closed", limit=LIMIT[config])
+# a reference that differs from model.py: four hundred times the RoPE theta
+OTHER_THETA = '''from kbench.reference import model
+
+
+def logits_at(weights, m, seqs, rows, quant=None, block=512):
+    return model.logits_at(weights, dict(m, rope_theta=400 * m["rope_theta"]), seqs, rows,
+                           quant, block)
+'''
+
+
+def _run(tiny, monkeypatch, config, fault=None, control=None, seed=3, reference="model"):
+    bench, root = tiny(config=config, loop="closed", limit=LIMIT[config], reference=reference)
+    (root / "reference" / "other_theta.py").write_text(OTHER_THETA)
     cell = load_cell(bench, "tiny.throwaway", root=root)
     plant = None if fault is None else (lambda server: fault(server, monkeypatch))
     log = io.StringIO()
@@ -86,3 +97,18 @@ def test_sound_run_is_correct_and_the_control_is_not(tiny, monkeypatch, config):
     assert r["correct"] is True, log
     (number,) = c["values"]
     assert NUMBERS[number](c["readings"]["fp8"]) > LIMIT[config] > c["values"][number], log
+
+
+@pytest.mark.parametrize("config", ["minicpm-2b", "phi3.5-moe-16l"])
+@pytest.mark.parametrize("reference", ["model", "other_theta", None])
+def test_the_check_calls_the_reference_the_configuration_names(tiny, monkeypatch, config,
+                                                                 reference):
+    """The same sound run is correct against ``model`` and not against a
+    reference that differs from it; a configuration naming none fails."""
+    if reference is None:
+        with pytest.raises(ValueError, match="configuration 'tiny' names no reference"):
+            _run(tiny, monkeypatch, config, reference=None)
+        return
+    r, log = _run(tiny, monkeypatch, config, reference=reference)
+    assert r["correct"] is (reference == "model"), log
+    assert f"reference {reference!r}" in log

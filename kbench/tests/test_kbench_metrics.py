@@ -1,9 +1,15 @@
 """Each metric reader's arithmetic on a hand-made record."""
+import json
+from pathlib import Path
+
 import pytest
 
 from kbench.spec import reader
-from kbench.yardstick import PEAK_FLOPS_BF16, bound_s, decode_work, model_flops, \
-    prefill_visible, prefill_work
+from kbench.yardstick import PEAK_FLOPS_BF16, active_params_nonembed, bound_s, decode_work, \
+    model_flops, prefill_visible, prefill_work
+
+CONFIGS = {p.stem: json.loads(p.read_text())
+           for p in (Path(__file__).resolve().parents[1] / "configs").glob("*.json")}
 
 MODEL = dict(num_layers=2, d_model=8, num_heads=2, num_kv_heads=1, head_dim=4, d_ff=16,
              vocab_size=32, num_experts=0, engine=dict(chunk_size=4))
@@ -108,3 +114,101 @@ def test_readers_give_nothing_without_a_profile_or_calls():
 
 def test_idle_share():
     assert reader("device_idle_share")(rec(profile=_profile())) == pytest.approx(25.0)
+
+
+# the counting readers before layers had windows: every layer full causal attention
+def _full_visible(st, sq, kv):
+    below = min(sq, max(0, kv - st))
+    return below * st + below * (below + 1) // 2 + (sq - below) * kv, min(st + sq, kv)
+
+
+def _full_flops(m, start, n):
+    pairs = n * start + n * (n + 1) // 2
+    return (2.0 * active_params_nonembed(m) * n
+            + 4.0 * m["num_layers"] * m["num_heads"] * m["head_dim"] * pairs)
+
+
+def _counted(m):
+    """A traced record of served work at ``m``'s shapes: prefill chunks of
+    its chunk size, whole and partial, up to 3,600 tokens deep; decode steps
+    at each bucket with lanes up to 4,000 rows."""
+    sq = m["engine"]["chunk_size"]
+    pre = [(11.0 + 0.01 * i, 11.005 + 0.01 * i, take, start)
+           for i, (start, take) in enumerate([(0, sq), (sq, sq), (3 * sq, 100), (3600, sq),
+                                              (7, 1)])]
+    dec = []
+    for i, b in enumerate(m["engine"]["decode_buckets"]):
+        lanes = max(1, b - 1)
+        kvs = [4000 - 251 * j for j in range(lanes)] + [1] * (b - lanes)
+        dec.append((12.0 + 0.01 * i, 12.005 + 0.01 * i, lanes, b, kvs))
+    p = _profile(group_s={"prefill_attention": 0.0123, "decode_attention": 0.0456},
+                 launches={"prefill_attention": 5, "decode_attention": 5})
+    return rec(model=m, prefill_spans=pre, decode_spans=dec, profile=p)
+
+
+def _full_readings(m, r):
+    sq = m["engine"]["chunk_size"]
+    pre = 0.0
+    for _, _, take, start in r["prefill_spans"]:
+        vis, rows = _full_visible(start, sq, start + take)
+        f, b = prefill_work(1, sq, m["num_heads"], m["num_kv_heads"], m["head_dim"], vis, rows)
+        pre += m["num_layers"] * bound_s(f, b)
+    dec = 0.0
+    for _, _, _, bucket, kvs in r["decode_spans"]:
+        f, b = decode_work(bucket, m["num_heads"], m["num_kv_heads"], m["head_dim"], sum(kvs))
+        dec += m["num_layers"] * bound_s(f, b)
+    pf = sum(_full_flops(m, start, take) for _, _, take, start in r["prefill_spans"])
+    df = sum(_full_flops(m, kv - 1, 1) for _, _, lanes, _, kvs in r["decode_spans"]
+             for kv in kvs[:lanes])
+    t_pre = sum(s[1] - s[0] for s in r["prefill_spans"])
+    t_dec = sum(s[1] - s[0] for s in r["decode_spans"])
+    return {"prefill_attention_roofline": 100.0 * pre / 0.0123,
+            "decode_attention_roofline": 100.0 * dec / 0.0456,
+            "mfu.prefill": 100.0 * pf / t_pre / PEAK_FLOPS_BF16,
+            "mfu.decode": 100.0 * df / t_dec / PEAK_FLOPS_BF16}
+
+
+COUNTING = ["prefill_attention_roofline", "decode_attention_roofline", "mfu.prefill",
+            "mfu.decode"]
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("name", COUNTING)
+def test_counting_readers_read_as_before_where_no_layer_has_a_window(config, name):
+    m = CONFIGS[config]
+    assert "attention_windows" not in m
+    r = _counted(m)
+    assert reader(name)(r) == _full_readings(m, r)[name]  # float for float
+
+
+def _per_layer_readings(m, r, windows):
+    """The same readings, layer by layer, each layer at its own window."""
+    sq = m["engine"]["chunk_size"]
+    hq, hkv, dh = m["num_heads"], m["num_kv_heads"], m["head_dim"]
+    pre = sum(bound_s(*prefill_work(1, sq, hq, hkv, dh,
+                                    *prefill_visible([start], sq, [start + take], w)))
+              for _, _, take, start in r["prefill_spans"] for w in windows)
+    dec = sum(bound_s(*decode_work(bucket, hq, hkv, dh, sum(min(kv, w or kv) for kv in kvs)))
+              for _, _, _, bucket, kvs in r["decode_spans"] for w in windows)
+    attn = lambda st, n: sum(4.0 * hq * dh * prefill_visible([st], n, [st + n], w)[0]  # noqa
+                             for w in windows)
+    flops = lambda st, n: 2.0 * active_params_nonembed(m) * n + attn(st, n)  # noqa: E731
+    pf = sum(flops(start, take) for _, _, take, start in r["prefill_spans"])
+    df = sum(flops(kv - 1, 1) for _, _, lanes, _, kvs in r["decode_spans"] for kv in kvs[:lanes])
+    t_pre = sum(s[1] - s[0] for s in r["prefill_spans"])
+    t_dec = sum(s[1] - s[0] for s in r["decode_spans"])
+    return {"prefill_attention_roofline": 100.0 * pre / 0.0123,
+            "decode_attention_roofline": 100.0 * dec / 0.0456,
+            "mfu.prefill": 100.0 * pf / t_pre / PEAK_FLOPS_BF16,
+            "mfu.decode": 100.0 * df / t_dec / PEAK_FLOPS_BF16}
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+@pytest.mark.parametrize("name", COUNTING)
+def test_counting_readers_count_each_layer_at_its_window(config, name):
+    m = CONFIGS[config]
+    windows = [1024 if i % 4 != 3 else 0 for i in range(m["num_layers"])]
+    r = _counted(dict(m, attention_windows=windows))
+    got = reader(name)(r)
+    assert got == pytest.approx(_per_layer_readings(m, r, windows)[name], rel=1e-12)
+    assert got < reader(name)(_counted(m))  # less work than every layer full
