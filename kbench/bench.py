@@ -8,8 +8,8 @@ re-zeroed the server's ``MonotonicClock``. The window is
 ``[lead_in_s, lead_in_s + seconds]`` of it. The benchmark's own wrappers
 time the engine's calls (``PrefillEngine.run_chunk``, ``DecodeEngine.step``,
 each ending in a device sync) and the clients time every token they
-receive; the traced run adds the session's ``TraceRecorder`` and a
-``torch.profiler`` slice.
+receive; the traced run adds the session's ``TraceRecorder`` (its events and
+the program's own spans, on the same clock) and a ``torch.profiler`` slice.
 """
 from __future__ import annotations
 
@@ -17,7 +17,9 @@ import asyncio
 import contextlib
 import dataclasses
 import gc
+import importlib.util
 import itertools
+import pkgutil
 import sys
 import time
 from typing import Callable, Dict, List, Optional, TextIO
@@ -129,6 +131,25 @@ def warm_up(server, vocab: int) -> None:
     server.reset_for_restart()
 
 
+def kernel_wrappers() -> Dict[str, Callable[[], int]]:
+    """The launch counters of the port's kernel wrappers, by
+    ``<package>.<wrapper>``: every function with an integer ``launches``
+    defined in a ``repro_torch.kernels.<package>.ops`` module."""
+    import repro_torch.kernels as kernels
+
+    out = {}
+    for pkg in pkgutil.iter_modules(kernels.__path__):
+        name = f"{kernels.__name__}.{pkg.name}.ops"
+        if not pkg.ispkg or importlib.util.find_spec(name) is None:
+            continue
+        ops = importlib.import_module(name)
+        for attr, fn in vars(ops).items():
+            if (callable(fn) and getattr(fn, "__module__", None) == name
+                    and isinstance(getattr(fn, "launches", None), int)):
+                out[f"{pkg.name}.{attr}"] = lambda fn=fn: fn.launches
+    return out
+
+
 def _profiler_warm_up(device: torch.device) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -159,7 +180,8 @@ async def _drive(server, cell: Cell, reqs: List[Req], seconds: float, trace: boo
         length = min(5.0, 0.2 * seconds)
         slicer = Slicer(t_lead + 0.25 * seconds, length,
                         {"prefill_attention": lambda: prefill_attention.launches,
-                         "decode_attention": lambda: decode_attention.launches})
+                         "decode_attention": lambda: decode_attention.launches},
+                        kernel_wrappers())
     step, submit = sess.step, sess.submit
 
     def wrapped_step():
@@ -232,18 +254,22 @@ async def _drive(server, cell: Cell, reqs: List[Req], seconds: float, trace: boo
     done = {r.rid: list(sess.outputs.get(r.rid, [])) for r in sess.requests
             if r.phase.value == "done"}
     prefill_start: Dict[int, float] = {}
-    steps = []
+    steps, events, program_spans = [], [], []
     if recorder is not None:
         for ev in recorder.events:
+            events.append((ev.type.value, ev.t, ev.rid, ev.data))
             if ev.type.value == "prefill_start":
                 prefill_start.setdefault(ev.rid, ev.t)
             elif ev.type.value == "decode_step":
                 steps.append((ev.t, ev.data["batch"], ev.data["step_time"]))
+        program_spans = [(s.name, s.pool, s.t0, s.t1, s.device_s, s.data)
+                         for s in recorder.spans]
     for rid, row in rows.items():
         row["prefill_start"] = prefill_start.get(rid)
     return dict(
         rows=rows, prompts=prompts, done=done, t_closed=t_closed, wall_at_window=wall_at_window,
-        backlog=backlog, steps=steps, slicer=slicer,
+        backlog=backlog, steps=steps, events=events, program_spans=program_spans,
+        slicer=slicer,
         failed=sess.metrics.rejected,
     )
 
@@ -279,6 +305,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, t_process: floa
         window=(cell.mix.lead_in_s, cell.mix.lead_in_s + seconds),
         t_closed=out["t_closed"], rows=list(out["rows"].values()),
         prefill_spans=spans.prefill, decode_spans=spans.decode, steps=out["steps"],
+        events=out.pop("events"), program_spans=out.pop("program_spans"),
         model=cfg, setup_s=out["wall_at_window"] - t_process,
         profile=out["slicer"].result() if out["slicer"] is not None else None,
     )

@@ -1,6 +1,8 @@
 """The traffic generator's frozen copies draw what the port's
 ``sim.trace.LengthDist`` and ``workloads.arrivals.PoissonArrivals`` draw,
-and every seed gets the same work in another order."""
+and every seed gets the same work in another order: in an open loop the
+same requests in the lead-in and in the window, in a closed loop the same
+pool."""
 import numpy as np
 import pytest
 
@@ -44,15 +46,28 @@ def test_seeds_share_the_work_in_another_order():
     a = mix.draw(1, 30, 4096, 1000)
     b = mix.draw(2**31 + 5, 30, 4096, 1000)
     assert len(a) == len(b) == 20
-    assert sorted((r.input_len, r.output_len) for r in a) == \
-        sorted((r.input_len, r.output_len) for r in b)
     assert [r.input_len for r in a] != [r.input_len for r in b]
-    gaps = lambda rs: sorted(np.round(np.diff([0.0] + [r.due for r in rs]), 9))  # noqa: E731
-    assert gaps(a) == gaps(b)
-    assert a[-1].due == pytest.approx(40.0) and b[-1].due == pytest.approx(40.0)
+    for lo, hi, m in ((0.0, 10.0, 5), (10.0, 40.0, 15)):  # the lead-in, the window
+        seg = [[r for r in rs if lo <= r.due < hi] for rs in (a, b)]
+        assert len(seg[0]) == len(seg[1]) == m
+        assert sorted((r.input_len, r.output_len) for r in seg[0]) == \
+            sorted((r.input_len, r.output_len) for r in seg[1])
+        # the same gaps, the one from the segment's last request to its end among them
+        gaps = [sorted(np.round(np.diff([lo] + [r.due for r in s] + [hi]), 9)) for s in seg]
+        assert gaps[0] == gaps[1]
+        assert [r.due for r in seg[0]] != [r.due for r in seg[1]]
     for r in a:
         assert len(r.prompt) == r.input_len and r.input_len + r.output_len <= 4095
         assert min(r.prompt) >= 2
+
+
+def test_open_loop_counts_follow_the_rate():
+    mix = _open_mix()
+    for seconds in (1, 7, 30, 51):
+        reqs = mix.draw(3, seconds, 4096, 1000)
+        assert sum(r.due < 10 for r in reqs) == 5
+        assert sum(10 <= r.due < 10 + seconds for r in reqs) == max(1, round(0.5 * seconds))
+        assert all(r.due < 10 + seconds for r in reqs)
 
 
 def test_same_seed_same_requests():
@@ -62,8 +77,31 @@ def test_same_seed_same_requests():
                                                            for r in b]
 
 
+def test_fixed_order_sends_every_seed_the_same_schedule():
+    mix = Mix("t", dict(_open_mix().params, order="fixed"))
+    a = mix.draw(1, 30, 4096, 1000)
+    b = mix.draw(2**31 + 5, 30, 4096, 1000)
+    assert [(r.due, r.input_len, r.output_len) for r in a] == \
+        [(r.due, r.input_len, r.output_len) for r in b]
+    assert all(x.prompt != y.prompt for x, y in zip(a, b))
+    permuted = _open_mix().draw(1, 30, 4096, 1000)
+    assert sorted(r.input_len for r in permuted) == sorted(r.input_len for r in a)
+
+
 def test_closed_loop_pool():
     mix = Mix("c", dict(loop="closed", clients=4, pool_per_client=5, pool_seed=3, lead_in_s=5,
                         lengths=_INTERACTIVE, slo=dict(ttft_s=8, tpot_s=0.05)))
     reqs = mix.draw(4, 30, 4096, 1000)
     assert len(reqs) == 20 and all(r.due == 0.0 for r in reqs)
+
+
+def test_closed_loop_cycles_the_pool_with_prompts_of_its_own():
+    kw = dict(loop="closed", clients=4, pool_per_client=2, pool_seed=3, lead_in_s=5,
+              lengths=_INTERACTIVE, slo=dict(ttft_s=8, tpot_s=0.05))
+    reqs = Mix("c", dict(kw, requests_per_client=5)).draw(4, 30, 4096, 1000)
+    assert len(reqs) == 20 and all(r.due == 0.0 for r in reqs)
+    sizes = [(r.input_len, r.output_len) for r in reqs]
+    assert sizes == sizes[:8] * 2 + sizes[:4]
+    assert sizes[:8] == [(r.input_len, r.output_len)
+                         for r in Mix("c", kw).draw(4, 30, 4096, 1000)]
+    assert len({tuple(r.prompt) for r in reqs}) == 20

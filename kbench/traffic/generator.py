@@ -10,12 +10,23 @@ are drawn once from the mix's ``pool_seed``, and ``--seed`` only permutes
 them (lengths and gaps apart) and draws the prompt tokens. So two seeds
 differ in which request comes when, not in how much there is to do.
 
-Open loop (``"loop": "open"``): ``rate`` requests a second, the first
-``lead_in_s`` seconds before the measured window, the gaps of a Poisson
-process scaled so that the last request is due at the window's end.
+Open loop (``"loop": "open"``): ``rate`` requests a second in two
+segments, the lead-in (``lead_in_s`` seconds before the measured window)
+and the window, each with its own ``round(rate * length)`` requests. The
+pool's first lengths go to the lead-in and the rest to the window, and each
+segment's arrivals are a Poisson process held to that count: its gaps,
+permuted within the segment, are scaled to span it, the last one running
+to the segment's end. So every seed sends the window the same requests, as
+many of them, and the same gaps, in another order.
+With ``"order": "fixed"`` the seed permutes nothing: every seed sends the
+pool's requests in the pool's order, and draws only the prompt tokens.
 Closed loop (``"loop": "closed"``): ``clients`` clients, each sending its
-next request when its last one completes; requests are handed out in the
-pool's permuted order, cycling if the pool runs out.
+next request when its last one completes; requests are handed out in
+order, ``requests_per_client`` a client (default ``pool_per_client``), the
+pool's lengths cycling in their permuted order, every request with prompt
+tokens of its own (a repeated prompt would hit the prefix cache). A pool of
+about as many requests as the window takes gives every seed's window
+nearly the same lengths.
 """
 from __future__ import annotations
 
@@ -96,30 +107,52 @@ class Mix:
         s = self.params["slo"]
         return float(s["ttft_s"]), float(s["tpot_s"])
 
+    def segments(self, seconds: float) -> List[Tuple[float, float, int]]:
+        """Open loop: (start, end, requests) of the lead-in and the window."""
+        rate, lead = float(self.params["rate"]), self.lead_in_s
+        return [(0.0, lead, int(round(rate * lead))),
+                (lead, lead + seconds, max(1, int(round(rate * seconds))))]
+
     def pool_size(self, seconds: float) -> int:
         if self.loop == "open":
-            return max(2, int(round(self.params["rate"] * (self.lead_in_s + seconds))))
+            return sum(m for _, _, m in self.segments(seconds))
         return int(self.params["clients"] * self.params["pool_per_client"])
+
+    def n_requests(self, seconds: float) -> int:
+        if self.loop == "open":
+            return self.pool_size(seconds)
+        per = self.params.get("requests_per_client", self.params["pool_per_client"])
+        return int(self.params["clients"] * per)
+
+    def _perm(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        fixed = self.params.get("order", "permuted") == "fixed"
+        return np.arange(n) if fixed else rng.permutation(n)
 
     def draw(self, seed: int, seconds: float, max_len: int, vocab: int) -> List[Req]:
         """The run's requests: the pool's lengths (and gaps) permuted by
-        ``seed``, prompts drawn from ``seed`` over token ids 2 .. vocab - 1
-        (0 pads, 1 ends a sequence)."""
+        ``seed`` (unless the order is fixed), prompts drawn from ``seed``
+        over token ids 2 .. vocab - 1 (0 pads, 1 ends a sequence)."""
         n = self.pool_size(seconds)
         pool = np.random.default_rng(int(self.params["pool_seed"]))
         inputs, outputs = sample_lengths(n, pool, **self.params.get("lengths", {}))
         rng = np.random.default_rng(seed)
-        order = rng.permutation(n)
         if self.loop == "open":
-            times = poisson_times(n, float(self.params["rate"]), pool)
-            gaps = np.diff(times, prepend=0.0)
-            gaps = gaps[rng.permutation(n)]
-            dues = np.cumsum(gaps) * ((self.lead_in_s + seconds) / gaps.sum())
+            segs = self.segments(seconds)
+            # one gap more than requests in each segment: the last runs to its end
+            gaps = np.diff(poisson_times(n + len(segs), float(self.params["rate"]), pool),
+                           prepend=0.0)
+            order, dues, first, g0 = [], [], 0, 0
+            for a, b, m in segs:
+                g = gaps[g0:g0 + m + 1][self._perm(rng, m + 1)]
+                order.extend(first + self._perm(rng, m))
+                dues.extend(a + (b - a) * np.cumsum(g)[:m] / g.sum())
+                first, g0 = first + m, g0 + m + 1
         else:
-            dues = np.zeros(n)
+            order = self._perm(rng, n)
+            dues = np.zeros(self.n_requests(seconds))
         reqs = []
-        for i in range(n):
-            inp, out = int(inputs[order[i]]), int(outputs[order[i]])
+        for i in range(len(dues)):
+            inp, out = int(inputs[order[i % n]]), int(outputs[order[i % n]])
             ci, co = clip_to_context(inp, out, max_len)
             reqs.append(Req(i, float(dues[i]), ci, co, clipped=(ci, co) != (inp, out)))
         tokens = rng.integers(2, vocab, size=sum(r.input_len for r in reqs))
